@@ -6,18 +6,28 @@
 Phases, each of a fixed size; any failure exits non-zero:
 
 1. device: a CUDA card must be present; prints its name and power limit;
-2. build: compiles every ``hsimae_tpu_torch/ops/csrc/*.cu`` with nvcc;
-3. kernel against plain version: the fused-block kernel and
-   ``block_reference`` on the same seeded inputs, f32 and bf16, at the
-   HSIMAE-B shapes (M cut to 4096) plus D=64 and D=256; then, at the full
-   batch-4096 shapes the main path gives the kernel, both compared again and
-   timed with CUDA events, one JSON line per case;
-4. main path: ``hsimae_tpu_torch.cli.evaluate.main`` classifies a 145x145x200
-   synthetic scene (GWPCA to 32 bands) with HSIMAE-B, seeded random weights,
-   f32, batch 4096. The kernel's launch count must be 21 per batch, and the
-   prediction map must agree with the same run through the plain PyTorch
-   Block modules (``use_kernel=False``) on >= 99.9% of pixels;
-5. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` last.
+2. build: compiles every ``hsimae_tpu_torch/ops/csrc/*.cu`` with nvcc, one
+   process per source, all at once, and prints ptxas's register lines;
+3. kernels against plain version: the fused-block kernels and
+   ``block_reference`` on the same seeded inputs, float32 (CUDA-core kernel)
+   and bfloat16 (wgmma kernel, packed weights), at the HSIMAE-B shapes (M cut
+   to 4096) plus D=64 and D=256; then, at the full batch-4096 shapes the main
+   path gives the kernel, both compared again and timed with CUDA events
+   beside the plain version and the port's Block modules (cuBLAS products),
+   one JSON line per case;
+4. main path, float32: ``hsimae_tpu_torch.cli.evaluate.main`` classifies a
+   145x145x200 synthetic scene (GWPCA to 32 bands) with HSIMAE-B, seeded
+   random weights, batch 4096. The float32 kernel must launch 21 times per
+   batch (the bf16 kernel never), and the prediction map must agree with the
+   same run through the plain PyTorch Block modules (``use_kernel=False``)
+   on >= 99.9% of pixels;
+5. main path, bfloat16 (the CLI's default dtype): the same scene; the wgmma
+   kernel must launch 21 times per batch (the float32 kernel never), and the
+   map must agree on >= 99.9% of pixels with the same bf16 model whose
+   blocks all run ``block_reference`` (the kernel's own semantics);
+6. warm batch loops (model built once): kernel against Block modules, in
+   both dtypes;
+7. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
@@ -45,10 +55,15 @@ CHECK_SHAPES = [  # (M, S, D, hidden); M cut to 4096 rows
     (4096, 9, 64, 172), (4096, 36, 256, 684),
 ]
 TOL = {"float32": 2e-5, "bfloat16": 5e-2}  # |kernel - ref| <= tol * max(1, |ref|)
+# each stream dtype has its own kernel: float32 on the CUDA cores, bfloat16 on wgmma
+KERNEL_OF = {"float32": "fused_block", "bfloat16": "fused_block_wgmma"}
+SOURCE = {"float32": "hsimae_tpu_torch/ops/csrc/fused_block.cu",
+          "bfloat16": "hsimae_tpu_torch/ops/csrc/fused_block_wgmma.cu"}
 
-MAIN_ARGV = ["--synthetic", "--synthetic-size", "145", "--synthetic-bands", "200",
-             "--synthetic-classes", "16", "--num-classes", "17", "--no-bf16",
-             "--batch-size", str(BATCH), "--device", "cuda"]
+SCENE_ARGV = ["--synthetic", "--synthetic-size", "145", "--synthetic-bands", "200",
+              "--synthetic-classes", "16", "--num-classes", "17",
+              "--batch-size", str(BATCH), "--device", "cuda"]
+MAIN_ARGV = {"float32": SCENE_ARGV + ["--no-bf16"], "bfloat16": SCENE_ARGV}
 MIN_AGREEMENT = 0.999
 
 
@@ -73,13 +88,33 @@ def random_block(d: int, hid: int, gen, device):
     return BlockParams(*(t.to(device) for t in p))
 
 
-def block_cost(m: int, s: int, d: int, hid: int, esize: int):
+def block_cost(m: int, s: int, d: int, hid: int, esize: int, weight_bytes: int):
     """(FLOPs, bytes) one block needs: the seven products and the two
-    attention products; x read once, the output written once, f32 weights
-    read once."""
+    attention products; x read once, the output written once, the kernel's
+    weights (f32, or the bf16 pack) read once."""
     flops = 2 * m * s * (4 * d * d + 3 * d * hid) + 4 * m * s * s * d
-    weights = 4 * (4 * d * d + 3 * d * hid + 6 * d + 2 * hid)
-    return flops, 2 * m * s * d * esize + weights
+    return flops, 2 * m * s * d * esize + weight_bytes
+
+
+def block_module(p, heads: int, dtype):
+    """The port's Block module (cuBLAS products, plain ops) holding ``p``."""
+    import torch
+    from hsimae_tpu_torch.models.layers import Block
+
+    blk = Block(p.w1.shape[0], heads, 4.0, True, dtype)  # HSIMAE's mlp_ratio
+    lin = {"attn.q": (p.wq, p.bq), "attn.k": (p.wk, p.bk), "attn.v": (p.wv, p.bv),
+           "attn.proj": (p.wo, p.bo), "mlp.w1": (p.w1, p.b1), "mlp.w3": (p.w3, p.b3),
+           "mlp.w2": (p.w2, p.b2)}
+    with torch.no_grad():
+        for name, (w, b) in lin.items():
+            mod = blk.get_submodule(name)
+            mod.weight.copy_(w.t())
+            mod.bias.copy_(b)
+        blk.norm1.weight.copy_(p.ln1_scale)
+        blk.norm1.bias.copy_(p.ln1_bias)
+        blk.norm2.weight.copy_(p.ln2_scale)
+        blk.norm2.bias.copy_(p.ln2_bias)
+    return blk.to(p.wq.device).eval()
 
 
 def compare(got, ref, dname: str, what: dict) -> float:
@@ -100,20 +135,23 @@ def compare(got, ref, dname: str, what: dict) -> float:
     return err.max().item()
 
 
-def time_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Median device time of ``fn`` in ms, CUDA events around each call."""
+def time_ms(fn, iters: int, rounds: int = 3, warmup: int = 2) -> float:
+    """Device time of one call of ``fn`` in ms: CUDA events around ``iters``
+    back-to-back calls (the host stays ahead, so launch gaps do not count),
+    the median over ``rounds``."""
     import torch
 
     for _ in range(warmup):
         fn()
     times = []
-    for _ in range(iters):
+    for _ in range(rounds):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(iters):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / iters)
     times.sort()
     return times[len(times) // 2]
 
@@ -128,6 +166,7 @@ def main() -> int:
 
     from hsimae_tpu_torch.cli import evaluate as cli_evaluate
     from hsimae_tpu_torch.config import EvalConfig
+    from hsimae_tpu_torch.models import hsimae as hsimae_model
     from hsimae_tpu_torch.ops import _build
     from hsimae_tpu_torch.ops import fused_block as fb
     from hsimae_tpu_torch.train.evaluate import build_classifier, predict_scene
@@ -141,113 +180,148 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; {kind}", flush=True)
 
     # ---- 2. build ----
-    print(f"build: fused_block {_build.build('fused_block'):.2f} s (0.00: already built)",
+    built = _build.build_all()
+    for name, sec in built.items():
+        print(f"build: {name} {sec:.2f} s (0.00: already built)", flush=True)
+        for line in _build.build_log(name).splitlines():
+            if "Used " in line or "spill" in line:
+                print(f"  ptxas {name}: {line.strip()}")
+    wg = _build.load_library("fused_block_wgmma")
+    print("  fused_block_wgmma dynamic shared memory per CTA: "
+          + ", ".join(f"D {d}: {wg.hsimae_fused_block_wgmma_smem_bytes(d)} B" for d in (64, 128, 256)),
           flush=True)
-    for line in _build.build_log("fused_block").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
 
-    # ---- 3. kernel against plain version ----
+    # ---- 3. kernels against plain version ----
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
+    dnames = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
     max_err = {"float32": 0.0, "bfloat16": 0.0}
-    for dtype in (torch.float32, torch.bfloat16):
-        dname = str(dtype).replace("torch.", "")
+
+    def kernel_weights(p, dtype):
+        return fb.pack_block(p) if dtype == torch.bfloat16 else p
+
+    for dtype, dname in dnames.items():
         for m, s, d, hid in CHECK_SHAPES:
             p = random_block(d, hid, gen, dev)
             x = torch.randn(m, s, d, generator=gen).to(dev, dtype)
-            err = compare(fb.fused_encoder_block(x, p, d // 16), fb.block_reference(x, p, d // 16),
-                          dname, {"shape": [m, s, d], "dtype": dname})
+            got = fb.fused_encoder_block(x, kernel_weights(p, dtype), d // 16)
+            err = compare(got, fb.block_reference(x, p, d // 16), dname,
+                          {"shape": [m, s, d], "dtype": dname})
             max_err[dname] = max(max_err[dname], err)
 
-    per_batch = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
-    bound_kinds = set()
-    for dtype in (torch.float32, torch.bfloat16):
-        dname = str(dtype).replace("torch.", "")
+    keys = ("ms", "plain_ms", "modules_ms", "bound_ms")
+    per_batch = {dname: dict.fromkeys(keys, 0.0) for dname in max_err}
+    bound_kinds = {dname: set() for dname in max_err}
+    for dtype, dname in dnames.items():
         for name, ((m, s, d), count) in MAIN_SHAPES.items():
             p = random_block(d, HID_B, gen, dev)
+            w = kernel_weights(p, dtype)
+            blk = block_module(p, HEADS_B, dtype)
             x = torch.randn(m, s, d, generator=gen).to(dev, dtype)
-            err = compare(fb.fused_encoder_block(x, p, HEADS_B), fb.block_reference(x, p, HEADS_B),
+            err = compare(fb.fused_encoder_block(x, w, HEADS_B), fb.block_reference(x, p, HEADS_B),
                           dname, {"block": name, "shape": [m, s, d], "dtype": dname})
             max_err[dname] = max(max_err[dname], err)
-            ms = time_ms(lambda: fb.fused_encoder_block(x, p, HEADS_B), iters=10)
-            plain_ms = time_ms(lambda: fb.block_reference(x, p, HEADS_B), iters=5)
-            flops, nbytes = block_cost(m, s, d, HID_B, x.element_size())
+            with torch.inference_mode():
+                ms = time_ms(lambda: fb.fused_encoder_block(x, w, HEADS_B), iters=10)
+                plain_ms = time_ms(lambda: fb.block_reference(x, p, HEADS_B), iters=3)
+                modules_ms = time_ms(lambda: blk(x), iters=5)
+            wbytes = (w.image.numel() * 2 + w.vecs.numel() * 4 if dtype == torch.bfloat16
+                      else sum(t.numel() * 4 for t in p))
+            flops, nbytes = block_cost(m, s, d, HID_B, x.element_size(), wbytes)
             t_ops, t_bytes = flops / PEAK_FLOPS[dname] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
             bound_ms = max(t_ops, t_bytes)
             bound_by = "operations" if t_ops >= t_bytes else "bytes"
-            print(json.dumps({"kernel": "fused_block", "block": name, "shape": [m, s, d],
+            print(json.dumps({"kernel": KERNEL_OF[dname], "block": name, "shape": [m, s, d],
                               "dtype": dname, "ms": ms, "plain_ms": plain_ms,
-                              "bound_ms": bound_ms, "bound_by": bound_by, "gflop": flops / 1e9,
-                              "mbytes": nbytes / 1e6, "tflops": flops / ms / 1e9}), flush=True)
-            if dtype == torch.float32:  # the main path's dtype
-                per_batch["ms"] += count * ms
-                per_batch["plain_ms"] += count * plain_ms
-                per_batch["bound_ms"] += count * bound_ms
-                bound_kinds.add(bound_by)
-            del x, p
+                              "modules_ms": modules_ms, "bound_ms": bound_ms,
+                              "bound_by": bound_by, "share_of_bound": bound_ms / ms,
+                              "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+                              "tflops": flops / ms / 1e9}), flush=True)
+            for k, v in zip(keys, (ms, plain_ms, modules_ms, bound_ms)):
+                per_batch[dname][k] += count * v
+            bound_kinds[dname].add(bound_by)
+            del x, p, w, blk
     torch.cuda.empty_cache()
 
-    # ---- 4. main path ----
-    args = cli_evaluate.build_parser().parse_args(MAIN_ARGV)
-    fb.LAUNCHES = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = cli_evaluate.main(MAIN_ARGV)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = fb.LAUNCHES
-
-    n_pix = args.synthetic_size ** 2
-    n_batches = math.ceil(n_pix / args.batch_size)
-    pred = res.pred_map
-    if launches != 21 * n_batches:
-        fail(f"kernel launched {launches} times on the main path, expected {21 * n_batches}")
-    if pred.shape != (args.synthetic_size, args.synthetic_size) or pred.min() < 1 \
-            or pred.max() >= args.num_classes:
-        fail(f"bad prediction map: shape {pred.shape}, labels {pred.min()}..{pred.max()}")
-    m = res.metrics
-    if not all(math.isfinite(v) for v in (m.oa, m.aa, m.kappa)):
-        fail("non-finite metrics")
-
-    scene, _, mcfg = cli_evaluate.prepare(args)
-    ecfg = EvalConfig(batch_size=args.batch_size)
-
-    def run(use_kernel: bool):
-        """The scene through a model built once: (map, warm predict seconds)."""
-        model = build_classifier(None, mcfg.replace(use_kernel=use_kernel), args.num_classes,
-                                 device="cuda", seed=args.seed)
-        predict_scene(model, scene, ecfg)  # first call: the kernel layout of the weights
+    # ---- 4, 5. main path, float32 then bfloat16, through the CLI ----
+    launches, results = {}, {}
+    for dname, argv in MAIN_ARGV.items():
+        fb.LAUNCHES = fb.WGMMA_LAUNCHES = 0
         torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = predict_scene(model, scene, ecfg)
+        t0 = time.perf_counter()
+        res = cli_evaluate.main(argv)
         torch.cuda.synchronize()
-        return out, time.perf_counter() - t
+        wall = time.perf_counter() - t0
+        counts = {"fused_block": fb.LAUNCHES, "fused_block_wgmma": fb.WGMMA_LAUNCHES}
+        args = cli_evaluate.build_parser().parse_args(argv)
+        n_pix = args.synthetic_size ** 2
+        n_batches = math.ceil(n_pix / args.batch_size)
+        own = KERNEL_OF[dname]
+        other = next(k for k in counts if k != own)
+        if counts[own] != 21 * n_batches or counts[other] != 0:
+            fail(f"{dname} main path launched {counts}, expected {21 * n_batches} of {own} only")
+        launches[own] = counts[own]
+        pred = res.pred_map
+        if pred.shape != (args.synthetic_size, args.synthetic_size) or pred.min() < 1 \
+                or pred.max() >= args.num_classes:
+            fail(f"bad {dname} prediction map: shape {pred.shape}, labels {pred.min()}..{pred.max()}")
+        m = res.metrics
+        if not all(math.isfinite(v) for v in (m.oa, m.aa, m.kappa)):
+            fail(f"non-finite {dname} metrics")
+        results[dname] = (args, res, wall, n_pix, n_batches)
 
-    plain_map, plain_s = run(False)
-    kernel_map, kernel_s = run(True)
-    agree = float((plain_map == pred).mean())
-    print(json.dumps({"main_path": "cli.evaluate", "pixels": n_pix, "batches": n_batches,
-                      "launches": launches, "wall_s": wall, "pixels_per_s": n_pix / wall,
-                      "warm_predict_kernel_s": kernel_s, "warm_predict_plain_s": plain_s,
-                      "warm_kernel_pixels_per_s": n_pix / kernel_s,
-                      "warm_plain_pixels_per_s": n_pix / plain_s,
-                      "agreement_with_plain": agree,
-                      "repeat_equal": bool((kernel_map == pred).all())}), flush=True)
-    if agree < MIN_AGREEMENT:
-        fail(f"prediction map agrees with the plain run on {agree:.5f} of pixels (< {MIN_AGREEMENT})")
+    # ---- 6. the maps against their references; warm batch loops ----
+    for dname, (args, res, wall, n_pix, n_batches) in results.items():
+        scene, _, mcfg = cli_evaluate.prepare(args)
+        ecfg = EvalConfig(batch_size=args.batch_size)
 
-    # ---- 5. result ----
+        def run(use_kernel: bool, blocks_by_reference: bool = False):
+            """The scene through a model built once: (map, warm predict seconds)."""
+            model = build_classifier(None, mcfg.replace(use_kernel=use_kernel), args.num_classes,
+                                     device="cuda", seed=args.seed)
+            orig = hsimae_model.fused_encoder_block
+            if blocks_by_reference:  # every block as block_reference, nothing else changed
+                hsimae_model.fused_encoder_block = lambda x, w, h: fb.block_reference(
+                    x, w.params if isinstance(w, fb.BlockPack) else w, h)
+            try:
+                predict_scene(model, scene, ecfg)  # first call: the kernel layout of the weights
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = predict_scene(model, scene, ecfg)
+                torch.cuda.synchronize()
+            finally:
+                hsimae_model.fused_encoder_block = orig
+            return out, time.perf_counter() - t
+
+        modules_map, modules_s = run(False)
+        kernel_map, kernel_s = run(True)
+        if dname == "float32":  # the Block modules compute the same f32 block
+            ref_map, ref_name = modules_map, "block_modules"
+        else:  # bf16: the kernel's semantics (residual rounded to bf16), block by block
+            ref_map, ref_name = run(True, blocks_by_reference=True)[0], "block_reference"
+        pred = res.pred_map
+        agree = float((ref_map == pred).mean())
+        print(json.dumps({"main_path": "cli.evaluate", "dtype": dname, "pixels": n_pix,
+                          "batches": n_batches, "launches": launches[KERNEL_OF[dname]],
+                          "wall_s": wall, "pixels_per_s": n_pix / wall,
+                          "warm_predict_kernel_s": kernel_s, "warm_predict_modules_s": modules_s,
+                          "warm_kernel_pixels_per_s": n_pix / kernel_s,
+                          "warm_modules_pixels_per_s": n_pix / modules_s,
+                          "reference": ref_name, "agreement": agree,
+                          "repeat_equal": bool((kernel_map == pred).all())}), flush=True)
+        if agree < MIN_AGREEMENT:
+            fail(f"{dname} prediction map agrees with {ref_name} on {agree:.5f} of pixels "
+                 f"(< {MIN_AGREEMENT})")
+
+    # ---- 7. result ----
     print(json.dumps({"kernels": [{
-        "name": "fused_block", "route": "cuda",
-        "source": "hsimae_tpu_torch/ops/csrc/fused_block.cu",
-        "replaces": "hsimae_tpu/ops/fused_block.py:158",
-        "launches": launches, "max_abs_err": max_err["float32"],
-        "ms": per_batch["ms"], "plain_ms": per_batch["plain_ms"],
-        "bound_ms": per_batch["bound_ms"],
-        "bound_by": "operations" if bound_kinds == {"operations"} else "bytes",
+        "name": KERNEL_OF[dname], "route": "cuda", "source": SOURCE[dname],
+        "replaces": "hsimae_tpu/ops/fused_block.py:158", "dtype": dname,
+        "launches": launches[KERNEL_OF[dname]], "max_abs_err": max_err[dname],
+        **per_batch[dname],
+        "bound_by": "operations" if bound_kinds[dname] == {"operations"} else "bytes",
         "library_ms": None,
-    }]}))
+    } for dname in max_err]}))
     print(f"nvidia-smi: {smi_line}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

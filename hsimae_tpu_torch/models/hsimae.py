@@ -20,7 +20,7 @@ from torch import nn
 from hsimae_tpu_torch.config import ModelConfig
 from hsimae_tpu_torch.models.layers import Block, LayerNorm, Linear, PatchEmbed, init_block_, init_trunc_normal
 from hsimae_tpu_torch.models.pos_embed import sincos_3d
-from hsimae_tpu_torch.ops.fused_block import fused_encoder_block, params_from_block
+from hsimae_tpu_torch.ops.fused_block import fused_encoder_block, pack_block, params_from_block
 
 CLS_HEAD_NAME = "cls_head"
 
@@ -44,7 +44,7 @@ class HSIMAE(nn.Module):
         # fusion blocks exist only for s_depth < 12 (reference quirk)
         self.blocks = blocks(c.fusion_depth)
         self.norm = LayerNorm(c.embed_dim)
-        # block-list name -> (weights' addresses and versions, [BlockParams], weights)
+        # (block-list name, dtype) -> (weights' addresses and versions, kernel weights, weights)
         self._kernel_params: dict = {}
         if c.num_classes > 0:
             head_in = c.embed_dim * c.t_size if c.head_mode == "agg" else c.embed_dim
@@ -71,20 +71,27 @@ class HSIMAE(nn.Module):
     # ----------------------------- encoder --------------------------------
 
     def kernel_params(self, name: str) -> list:
-        """The weights of block list ``name`` in the kernel's layout, built
-        once and rebuilt only after a weight is replaced (``.to``,
-        ``load_state_dict``) or changed in place (its version counter)."""
+        """The weights of block list ``name`` laid out for the kernel of the
+        stream dtype ``cfg.compute_dtype``: :class:`BlockParams` for float32,
+        a :class:`BlockPack` (bf16 tiles, padded hidden axis) for bfloat16.
+        Built once (the entry is keyed by dtype) and rebuilt only after a
+        weight is replaced (``.to``, ``load_state_dict``) or changed in place
+        (its version counter)."""
+        dtype = self.cfg.compute_dtype
         blocks = getattr(self, name)
         weights = list(blocks.parameters())
         key = [(t.data_ptr(), t._version) for t in weights]
-        hit = self._kernel_params.get(name)
+        hit = self._kernel_params.get((name, dtype))
         if hit is None or hit[0] != key:
             # plain tensors even when called under inference_mode; the entry
             # keeps the weights it was built from alive, so no new weight can
             # take one of their addresses while it stands
             with torch.inference_mode(False), torch.no_grad():
-                hit = (key, [params_from_block(b) for b in blocks], [t.detach() for t in weights])
-            self._kernel_params[name] = hit
+                params = [params_from_block(b) for b in blocks]
+                if dtype == torch.bfloat16:
+                    params = [pack_block(p) for p in params]
+                hit = (key, params, [t.detach() for t in weights])
+            self._kernel_params[(name, dtype)] = hit
         return hit[1]
 
     def _run_blocks(self, name: str, x: torch.Tensor) -> torch.Tensor:

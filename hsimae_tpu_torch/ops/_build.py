@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface (``extern "C"``, raw
 pointers, ints and the ``cudaStream_t``) and compiles with one nvcc call into
 ``_build/<name>-<hash>.so``, where the hash covers the source and the
-flags. The first use builds it (a few seconds with no PyTorch headers
-involved); later uses load the library already built. Any build or load
-error raises.
+flags (extra ones, such as a profiling ``-D`` switch, are an argument). The
+first use builds it (a few seconds with no PyTorch headers involved); later
+uses load the library already built. :func:`build_all` starts one nvcc per
+source at once. Any build or load error raises.
 """
 
 from __future__ import annotations
@@ -28,8 +29,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "fused_block": {
-        "hsimae_fused_block": (_I, [_I, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+        "hsimae_fused_block": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
         "hsimae_fused_block_max_seq": (_I, [_I]),
+    },
+    "fused_block_wgmma": {
+        "hsimae_fused_block_wgmma": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+        "hsimae_fused_block_wgmma_max_seq": (_I, [_I]),
+        "hsimae_fused_block_wgmma_max_hidden": (_I, [_I]),
+        "hsimae_fused_block_wgmma_smem_bytes": (_I, [_I]),
+        "hsimae_fused_block_wgmma_image_bytes": (ctypes.c_longlong, [_I, _I]),
     },
 }
 
@@ -42,41 +50,58 @@ def nvcc_path() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, extra_flags: tuple = ()) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = " ".join((*NVCC_FLAGS, *extra_flags))
+    digest = hashlib.sha256(src.read_bytes() + flags.encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
-def build(name: str) -> float:
-    """Build ``csrc/<name>.cu`` unless it is built already; returns nvcc's
-    wall seconds (0.0 when the library was there)."""
-    lib = library_path(name)
+def _start(name: str, extra_flags: tuple = ()):
+    """Start nvcc on ``csrc/<name>.cu`` unless it is built already: returns
+    (process, library, start time) or None."""
+    lib = library_path(name, extra_flags)
     if lib.exists():
-        return 0.0
+        return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    (BUILD_DIR / f"{name}.log").write_text(proc.stdout)
+    cmd = [nvcc_path(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, lib, time.perf_counter()
+
+
+def _finish(name: str, started) -> float:
+    if started is None:
+        return 0.0
+    proc, lib, t0 = started
+    log = proc.communicate()[0]
+    lib.with_suffix(".log").write_text(log)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{proc.stdout}")
-    os.replace(tmp, lib)  # atomic: a concurrent loader sees the whole file or none
+        raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
+    # atomic: a concurrent loader sees the whole file or none
+    os.replace(lib.with_suffix(f".{os.getpid()}.tmp"), lib)
     return time.perf_counter() - t0
 
 
+def build_all() -> dict:
+    """Build every library of ``SIGNATURES``, one nvcc per source, all
+    started together; returns each one's wall seconds (0.0: already built)."""
+    started = {name: _start(name) for name in SIGNATURES}
+    return {name: _finish(name, s) for name, s in started.items()}
+
+
 def build_log(name: str) -> str:
-    """nvcc's output (ptxas register and spill report) of the last build."""
-    path = BUILD_DIR / f"{name}.log"
+    """nvcc's output (ptxas register and spill report) of the library's build."""
+    path = library_path(name).with_suffix(".log")
     return path.read_text() if path.exists() else ""
 
 
 @functools.cache
-def load_library(name: str) -> ctypes.CDLL:
-    """Build ``csrc/<name>.cu`` if needed and load it with its signatures set."""
-    build(name)
-    lib = ctypes.CDLL(str(library_path(name)))
+def load_library(name: str, extra_flags: tuple = ()) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` (with nvcc's ``extra_flags``) if needed and
+    load it with its signatures set."""
+    _finish(name, _start(name, extra_flags))
+    lib = ctypes.CDLL(str(library_path(name, extra_flags)))
     for fn, (restype, argtypes) in SIGNATURES[name].items():
         f = getattr(lib, fn)
         f.restype = restype

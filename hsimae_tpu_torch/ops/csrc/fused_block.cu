@@ -1,7 +1,11 @@
-// One fused pre-LN transformer block over [M, S, D] sequences, for sm_90a.
+// One fused pre-LN transformer block over [M, S, D] float32 sequences, for
+// sm_90a, on the CUDA cores.
 //
 // Replaces the Pallas TPU kernel hsimae_tpu/ops/fused_block.py::_kernel
-// (launched by fused_encoder_block, math in _block_math). Per sequence:
+// (launched by fused_encoder_block, math in _block_math) for the float32
+// stream. This is a fixed choice per dtype, not a fallback: bfloat16 runs on
+// the tensor cores in fused_block_wgmma.cu, while TF32 wgmma would not hold
+// the float32 check (2e-5). Per sequence:
 //
 //   y  = LN1(x)                          f32, eps 1e-5, rounded to T
 //   q, k, v = y W + b                    rounded to T
@@ -10,9 +14,8 @@
 //   y2 = LN2(x)                          rounded to T
 //   x += round_T(W2(round_T(silu(W1 y2 + b1) * (W3 y2 + b3))) + b2)
 //
-// T is the stream dtype (float or bf16); weights are float32 in [in, out]
-// layout and are rounded to T as they are read, so every product is
-// T x T accumulated in f32, as in the reference.
+// T is the stream dtype (float; the template keeps the rounding points of
+// the reference explicit); weights are float32 in [in, out] layout.
 //
 // What bounds it on an H100: operations. At HSIMAE-B shapes (D 128,
 // SwiGLU hidden 344) one launch at batch 4096 does about 59 GFLOP and moves
@@ -33,9 +36,9 @@
 //     so 172, 344 and 684 run unpadded;
 //   * products run on the f32 CUDA cores (no tensor cores): register tiles
 //     of 8 rows x 4 columns, 4-deep float4 steps over K.
-// wgmma, TMA and warp specialisation are left to later work.
+// This design is kept for float32 only; the bf16 stream runs on wgmma in
+// fused_block_wgmma.cu.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -67,19 +70,6 @@ struct Num<float> {
   static __device__ __forceinline__ float rnd(float v) { return v; }
   static __device__ __forceinline__ float load(const float* p) { return *p; }
   static __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-};
-
-template <>
-struct Num<__nv_bfloat16> {
-  static __device__ __forceinline__ float rnd(float v) {
-    return __bfloat162float(__float2bfloat16(v));
-  }
-  static __device__ __forceinline__ float load(const __nv_bfloat16* p) {
-    return __bfloat162float(*p);
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-    *p = __float2bfloat16(v);
-  }
 };
 
 template <typename T>
@@ -352,10 +342,11 @@ int hsimae_fused_block_max_seq(int D) {
   return rows - rows % kRowTile;
 }
 
-// dtype 0: float32, 1: bfloat16. weights: kNumWeights float32 device pointers
-// in BlockParams order, w1/w3 [D, H], w2 [H, D], H a multiple of 4.
+// x, out: [M, S, D] float32 (bfloat16 has its own kernel). weights:
+// kNumWeights float32 device pointers in BlockParams order, w1/w3 [D, H],
+// w2 [H, D], H a multiple of 4.
 // Returns the cudaError_t of the launch (0 on success). Does not synchronise.
-int hsimae_fused_block(int dtype, const void* x, void* out, const void* const* weights, int M,
+int hsimae_fused_block(const void* x, void* out, const void* const* weights, int M,
                        int S, int D, int H, int num_heads, void* stream) {
   const int max_seq = hsimae_fused_block_max_seq(D);
   if (M <= 0 || S <= 0 || S > max_seq || num_heads * kHeadDim != D || H <= 0 || H % 4 != 0)
@@ -367,9 +358,7 @@ int hsimae_fused_block(int dtype, const void* x, void* out, const void* const* w
   Weights w;
   for (int i = 0; i < kNumWeights; ++i) w.p[i] = static_cast<const float*>(weights[i]);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x, out, w, M, S, D, H, nseq, Rp, smem, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(x, out, w, M, S, D, H, nseq, Rp, smem, s);
-  return (int)cudaErrorInvalidValue;
+  return launch<float>(x, out, w, M, S, D, H, nseq, Rp, smem, s);
 }
 
 }  // extern "C"

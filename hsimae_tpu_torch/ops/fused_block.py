@@ -1,16 +1,24 @@
-"""One fused pre-LN transformer block: CUDA kernel, wrapper and plain version.
+"""One fused pre-LN transformer block: CUDA kernels, wrapper and plain version.
 
 Counterpart of ``hsimae_tpu/ops/fused_block.py``. The Pallas TPU kernel
-(``_kernel``, math ``_block_math``) becomes the hand-written CUDA kernel
-``csrc/fused_block.cu``, built by ``nvcc`` for sm_90a and bound with
-``ctypes`` (:mod:`hsimae_tpu_torch.ops._build`). One launch covers all M
-sequences; the JAX package's ``fused_block_sliced`` (a TPU compile
-workaround) has no counterpart.
+(``_kernel``, math ``_block_math``) becomes two hand-written CUDA kernels
+for sm_90a, one per stream dtype, built by ``nvcc`` and bound with
+``ctypes`` (:mod:`hsimae_tpu_torch.ops._build`):
+
+* float32: ``csrc/fused_block.cu``, on the CUDA cores (TF32 tensor cores
+  would not hold the 2e-5 check); takes :class:`BlockParams`;
+* bfloat16: ``csrc/fused_block_wgmma.cu``, on the tensor cores (wgmma fed by
+  bulk async copies through a shared-memory ring, persistent CTAs); takes a
+  :class:`BlockPack`, the block's weights packed once by :func:`pack_block`.
+
+One launch covers all M sequences; the JAX package's ``fused_block_sliced``
+(a TPU compile workaround) has no counterpart.
 
 * :func:`block_reference` is the plain PyTorch version of the block math.
 * :func:`fused_encoder_block` is the wrapper: on a CPU tensor it returns the
-  plain version; on a CUDA tensor it launches the kernel or raises.
-  ``LAUNCHES`` counts kernel launches.
+  plain version; on a CUDA tensor it launches the dtype's kernel or raises.
+  ``LAUNCHES`` counts launches of the float32 kernel, ``WGMMA_LAUNCHES``
+  those of the bfloat16 kernel.
 """
 
 from __future__ import annotations
@@ -23,12 +31,22 @@ import torch.nn.functional as F
 
 from hsimae_tpu_torch.ops import _build
 
-# Kernel launches since import (or since a caller last set it to 0).
+# Kernel launches since import (or since a caller last set them to 0):
+# the float32 CUDA-core kernel and the bfloat16 wgmma kernel.
 LAUNCHES = 0
+WGMMA_LAUNCHES = 0
 
 SUPPORTED_D = (64, 128, 256)
 HEAD_DIM = 16
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
+
+# Weight pack of the bf16 kernel: tiles of up to 128 output rows x 64 K
+# columns (one 128-byte swizzle atom), in the order the kernel consumes them:
+# wq, wk, wv, wo (output-row blocks of min(D, 128), K atoms inner), then per
+# 64 hidden columns W1's rows over W3's (K atoms inner), then W2.
+HIDDEN_MULTIPLE = 16  # wgmma's K step for bf16: the padded hidden axis
+_ATOM_K = 64
+_HID_TILE = 64  # hidden columns per interleaved [W1 | W3] tile
 
 
 class BlockParams(NamedTuple):
@@ -74,6 +92,64 @@ def params_from_block(block) -> BlockParams:
     )
 
 
+class BlockPack(NamedTuple):
+    """One block's weights as the bf16 kernel reads them, built once by
+    :func:`pack_block`."""
+
+    params: BlockParams  # the float32 weights it was packed from
+    image: torch.Tensor  # bf16, 1-D: the swizzled weight tiles in the kernel's order
+    vecs: torch.Tensor  # float32, 1-D: ln1 (scale, bias), bq, bk, bv, bo, ln2, b2, b1, b3
+
+
+def padded_hidden(hidden: int) -> int:
+    return -(-hidden // HIDDEN_MULTIPLE) * HIDDEN_MULTIPLE
+
+
+def swizzle128(t: torch.Tensor) -> torch.Tensor:
+    """The 128-byte swizzle of bf16 tiles ``[..., rows, 64]``: the 16-byte
+    chunk c of row r moves to chunk ``c ^ (r % 8)``. It is its own inverse."""
+    rows = t.shape[-2]
+    r = torch.arange(rows, device=t.device)
+    idx = torch.arange(8, device=t.device)[None, :] ^ (r[:, None] % 8)  # [rows, 8]
+    chunks = t.reshape(*t.shape[:-1], 8, 8)
+    idx = idx[..., None].expand(*chunks.shape[-3:]).expand_as(chunks)
+    return torch.gather(chunks, -2, idx).reshape(t.shape)
+
+
+def _atoms(w: torch.Tensor, rows: int) -> torch.Tensor:
+    """``w [N, K]`` (``[out, in]``) as swizzled tiles of ``rows`` x 64,
+    output-row blocks outer, K atoms inner; K zero-padded to 64."""
+    n, k = w.shape
+    w = F.pad(w, (0, -k % _ATOM_K))
+    tiles = w.reshape(n // rows, rows, -1, _ATOM_K).transpose(1, 2)
+    return swizzle128(tiles).reshape(-1)
+
+
+@torch.no_grad()
+def pack_block(p: BlockParams) -> BlockPack:
+    """Pack one block for the bf16 kernel, on the weights' device: every
+    matrix rounded to bf16, transposed to ``[out, in]``, cut into tiles in
+    the kernel's order (above) and swizzled; the hidden axis
+    zero-padded to a multiple of 16 (exact: silu(0) * 0 = 0, and the padded
+    rows of W2 are zero). Done once per model, never per launch."""
+    d, hid = p.w1.shape
+    hp = padded_hidden(hid)
+    pad = hp - hid
+    bf = torch.bfloat16
+    w1t = F.pad(p.w1.t().to(bf), (0, 0, 0, pad))  # [hp, d]
+    w3t = F.pad(p.w3.t().to(bf), (0, 0, 0, pad))
+    w2t = F.pad(p.w2.t().to(bf), (0, pad))  # [d, hp]
+    nt = min(d, 128)
+    parts = [_atoms(w.t().to(bf), nt) for w in (p.wq, p.wk, p.wv, p.wo)]
+    for h0 in range(0, hp, _HID_TILE):
+        sl = slice(h0, min(h0 + _HID_TILE, hp))
+        parts.append(_atoms(torch.cat([w1t[sl], w3t[sl]]), 2 * (sl.stop - h0)))
+    parts.append(_atoms(w2t, nt))
+    vecs = torch.cat([p.ln1_scale, p.ln1_bias, p.bq, p.bk, p.bv, p.bo, p.ln2_scale, p.ln2_bias,
+                      p.b2, F.pad(p.b1, (0, pad)), F.pad(p.b3, (0, pad))]).float()
+    return BlockPack(p, torch.cat(parts).contiguous(), vecs.contiguous())
+
+
 def _ln(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     x32 = x.float()
     mu = x32.mean(-1, keepdim=True)
@@ -115,7 +191,7 @@ def _check(x: torch.Tensor, p: BlockParams, num_heads: int, max_seq: int) -> Non
     if x.dim() != 3:
         raise ValueError(f"x must be [M, S, D], got {tuple(x.shape)}")
     m, s, d = x.shape
-    if x.dtype not in _DTYPE_CODE:
+    if x.dtype not in _DTYPES:
         raise TypeError(f"fused block kernel takes float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
@@ -139,7 +215,12 @@ def _check(x: torch.Tensor, p: BlockParams, num_heads: int, max_seq: int) -> Non
             raise ValueError(f"{name} must be a contiguous float32 tensor on {x.device}")
 
 
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
 def _launch(x: torch.Tensor, p: BlockParams, num_heads: int) -> torch.Tensor:
+    """The float32 CUDA-core kernel."""
     global LAUNCHES
     lib = _build.load_library("fused_block")
     _check(x, p, num_heads, lib.hsimae_fused_block_max_seq(x.shape[-1]))
@@ -149,23 +230,55 @@ def _launch(x: torch.Tensor, p: BlockParams, num_heads: int) -> torch.Tensor:
         return out
     ptrs = (ctypes.c_void_p * len(p))(*(t.data_ptr() for t in p))
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.hsimae_fused_block(_DTYPE_CODE[x.dtype], x.data_ptr(), out.data_ptr(), ptrs,
-                                    m, s, d, p.w1.shape[-1], num_heads, stream)
+        rc = lib.hsimae_fused_block(x.data_ptr(), out.data_ptr(), ptrs, m, s, d,
+                                    p.w1.shape[-1], num_heads, _stream(x))
     if rc != 0:
         raise RuntimeError(f"fused block kernel launch failed: cudaError_t {rc}")
     LAUNCHES += 1
     return out
 
 
-def fused_encoder_block(x: torch.Tensor, p: BlockParams, num_heads: int) -> torch.Tensor:
+def _launch_wgmma(x: torch.Tensor, pack: BlockPack, num_heads: int) -> torch.Tensor:
+    """The bfloat16 tensor-core kernel."""
+    global WGMMA_LAUNCHES
+    lib = _build.load_library("fused_block_wgmma")
+    d = x.shape[-1]
+    _check(x, pack.params, num_heads, lib.hsimae_fused_block_wgmma_max_seq(d))
+    hp = padded_hidden(pack.params.w1.shape[-1])
+    if hp > lib.hsimae_fused_block_wgmma_max_hidden(d):
+        raise ValueError(f"unsupported padded hidden width {hp} at D={d}")
+    want = lib.hsimae_fused_block_wgmma_image_bytes(d, hp)
+    for name, t, dtype, n in (("image", pack.image, torch.bfloat16, want // 2),
+                              ("vecs", pack.vecs, torch.float32, 9 * d + 2 * hp)):
+        if t.dtype != dtype or t.device != x.device or not t.is_contiguous() or t.numel() != n:
+            raise ValueError(f"pack {name} must be a contiguous {dtype} tensor of {n} on {x.device}")
+    m, s, _ = x.shape
+    out = torch.empty_like(x)
+    if m == 0:
+        return out
+    with torch.cuda.device(x.device):
+        rc = lib.hsimae_fused_block_wgmma(x.data_ptr(), out.data_ptr(), pack.image.data_ptr(),
+                                          pack.vecs.data_ptr(), m, s, d, hp, num_heads, _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"fused block wgmma kernel launch failed: cudaError_t {rc}")
+    WGMMA_LAUNCHES += 1
+    return out
+
+
+def fused_encoder_block(x: torch.Tensor, p: BlockParams | BlockPack, num_heads: int) -> torch.Tensor:
     """Apply one transformer block to ``[M, S, D]`` sequences.
 
-    On a CPU tensor this is :func:`block_reference`; on a CUDA tensor it
-    launches the CUDA kernel on the current stream (no synchronisation) or
-    raises."""
+    On a CPU tensor this is :func:`block_reference`. On a CUDA tensor it
+    launches, on the current stream (no synchronisation), the float32 kernel
+    for float32 and the bfloat16 wgmma kernel for bfloat16, which takes the
+    weights packed (a :class:`BlockPack`); anything else raises."""
+    params = p.params if isinstance(p, BlockPack) else p
     if x.device.type == "cpu":
-        return block_reference(x, p, num_heads)
+        return block_reference(x, params, num_heads)
     if x.device.type != "cuda":
         raise ValueError(f"fused_encoder_block runs on cpu or cuda tensors, got {x.device}")
-    return _launch(x, p, num_heads)
+    if x.dtype != torch.bfloat16:
+        return _launch(x, params, num_heads)
+    if not isinstance(p, BlockPack):
+        raise TypeError("the bfloat16 kernel takes packed weights: pass pack_block(params)")
+    return _launch_wgmma(x, p, num_heads)

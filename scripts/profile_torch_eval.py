@@ -58,7 +58,7 @@ def main() -> int:
         steps[name] = time.perf_counter() - t
         return out
 
-    step("build_kernels_s", lambda: _build.build("fused_block"))
+    step("build_kernels_s", _build.build_all)
     scene, gt = step("synthetic_scene_s", lambda: make_synthetic_scene(
         args.size, args.size, bands=args.bands, n_classes=args.classes, seed=0))
     scene = step("gwpca_s", lambda: apply_gwpca(scene, nc=32).astype("float32"))

@@ -1,0 +1,119 @@
+#!/usr/bin/env python3
+"""Time the fused-block kernels of one checkout of the port by two methods.
+
+    python3 scripts/time_fused_block.py [--root DIR] [--label NAME]
+
+Imports ``hsimae_tpu_torch`` from ``--root`` (default: this repo), so the
+same timer can read an older checkout of the port, unpacked into a
+git-ignored directory, beside this one: run old, new, new, old in one
+session on one card and compare within it. For float32 and bfloat16 at the
+HSIMAE-B main-path shapes of batch 4096 (the same seeded inputs in every
+checkout), it prints one JSON line per case with the kernel's time by
+
+- ``single_call_ms``: CUDA events around each single call, the median of
+  10 (the wrapper's host time falls inside the events), and
+- ``back_to_back_ms``: CUDA events around 10 back-to-back calls divided by
+  10, the median of 3 rounds (launch gaps hidden while the host stays ahead),
+
+then a last line with the card's name and power limit. Where the checkout
+has ``pack_block``, bfloat16 gets packed weights (its wgmma kernel);
+otherwise the kernel takes ``BlockParams`` in both dtypes. Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+from pathlib import Path
+
+D, HEADS, HIDDEN = 128, 8, 344
+SHAPES = {"blocks_1": (16384, 9, D), "blocks_2": (36864, 4, D), "fusion": (4096, 36, D)}
+
+
+def single_call_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def back_to_back_ms(fn, iters: int = 10, rounds: int = 3, warmup: int = 2) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(rounds):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / iters)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
+    ap.add_argument("--label", default="")
+    args = ap.parse_args()
+    sys.path.insert(0, str(Path(args.root).resolve()))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("time_fused_block: needs a CUDA card", file=sys.stderr)
+        return 1
+    from hsimae_tpu_torch.ops import fused_block as fb
+
+    def weights(gen):
+        """Seeded float32 block weights at unit-gain scale on the card."""
+        def w(i, o):
+            return torch.randn(i, o, generator=gen) / math.sqrt(i)
+
+        def vec(n, base=0.0):
+            return base + 0.1 * torch.randn(n, generator=gen)
+
+        p = fb.BlockParams(vec(D, 1.0), vec(D), w(D, D), vec(D), w(D, D), vec(D), w(D, D), vec(D),
+                           w(D, D), vec(D), vec(D, 1.0), vec(D), w(D, HIDDEN), vec(HIDDEN),
+                           w(D, HIDDEN), vec(HIDDEN), w(HIDDEN, D), vec(D))
+        return fb.BlockParams(*(t.cuda() for t in p))
+
+    packs = hasattr(fb, "pack_block")
+    gen = torch.Generator().manual_seed(0)
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, (m, s, d) in SHAPES.items():
+            p = weights(gen)
+            w = fb.pack_block(p) if packs and dtype == torch.bfloat16 else p
+            x = torch.randn(m, s, d, generator=gen).to("cuda", dtype)
+            with torch.inference_mode():
+                run = lambda: fb.fused_encoder_block(x, w, HEADS)  # noqa: E731
+                row = {"label": args.label, "block": name, "shape": [m, s, d],
+                       "dtype": str(dtype).removeprefix("torch."),
+                       "single_call_ms": single_call_ms(run),
+                       "back_to_back_ms": back_to_back_ms(run)}
+            print(json.dumps(row), flush=True)
+            del x, p, w
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    print(json.dumps({"label": args.label, "package": fb.__file__, "device": smi}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

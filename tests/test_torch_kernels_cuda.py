@@ -8,6 +8,9 @@ it also runs where JAX is not installed:
 Tolerances as in chip_smoke.py: |kernel - plain| <= tol * max(1, |plain|),
 f32 2e-5 (same arithmetic, other summation order), bf16 5e-2 (a different
 f32 sum can round to a neighbouring bf16 value).
+
+float32 runs the CUDA-core kernel (``LAUNCHES``), bfloat16 the wgmma kernel
+on packed weights (``WGMMA_LAUNCHES``).
 """
 
 import pytest
@@ -43,11 +46,13 @@ def card():
 def test_fused_block_kernel_matches_plain_version(card, m, s, d, dtype, tol):
     p = random_block(d, swiglu_hidden_dim(d), seed=s + d)
     x = torch.randn(m, s, d, generator=torch.Generator().manual_seed(m)).to("cuda", dtype)
-    before = tfb.LAUNCHES
-    got = tfb.fused_encoder_block(x, p, d // 16)
+    weights = tfb.pack_block(p) if dtype == torch.bfloat16 else p
+    before = (tfb.LAUNCHES, tfb.WGMMA_LAUNCHES)
+    got = tfb.fused_encoder_block(x, weights, d // 16)
     ref = tfb.block_reference(x, p, d // 16)
     torch.cuda.synchronize()
-    assert tfb.LAUNCHES == before + 1
+    bf16 = dtype == torch.bfloat16
+    assert (tfb.LAUNCHES, tfb.WGMMA_LAUNCHES) == (before[0] + (not bf16), before[1] + bf16)
     assert got.dtype == dtype and got.shape == x.shape
     err = ((got.float() - ref.float()).abs() / ref.float().abs().clamp(min=1.0)).max().item()
     assert err <= tol, err
@@ -81,3 +86,80 @@ def test_fused_block_kernel_rejects_unsupported_on_card(card):
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         tfb.fused_encoder_block(torch.zeros(2, 9, 128, device="cuda", dtype=torch.float16), p, 8)
     assert tfb.LAUNCHES == before
+
+
+def _sms() -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,s,d", [
+    *[(301, s, 128) for s in (2, 3, 4, 6, 9, 18, 36)],  # every S of the model at D 128
+    (300, 9, 64), (77, 36, 64), (300, 9, 256), (77, 36, 256),  # HSIMAE-S and -L widths
+    (3001, 9, 128),  # 215 row tiles of 14 sequences: the persistent loop wraps; last tile ragged
+    (50, 9, 128),  # 4 row tiles, fewer than the SMs
+    (7, 64, 64), (3, 40, 256),  # the longest sequences the kernel takes
+])
+def test_wgmma_kernel_matches_plain_version(card, m, s, d):
+    """The bf16 tensor-core kernel against block_reference (bf16, 5e-2 scaled)."""
+    p = random_block(d, swiglu_hidden_dim(d), seed=3 * s + d)
+    x = torch.randn(m, s, d, generator=torch.Generator().manual_seed(m + s)).to("cuda", torch.bfloat16)
+    before = (tfb.LAUNCHES, tfb.WGMMA_LAUNCHES)
+    got = tfb.fused_encoder_block(x, tfb.pack_block(p), d // 16)
+    ref = tfb.block_reference(x, p, d // 16)
+    torch.cuda.synchronize()
+    assert (tfb.LAUNCHES, tfb.WGMMA_LAUNCHES) == (before[0], before[1] + 1)
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    assert torch.isfinite(got.float()).all()
+    err = ((got.float() - ref.float()).abs() / ref.float().abs().clamp(min=1.0)).max().item()
+    assert err <= 5e-2, err
+
+
+@pytest.mark.cuda
+def test_wgmma_grid_shapes_of_the_cases(card):
+    """The persistent-loop cases above are what they claim on this card:
+    more row tiles than SMs for (3001, 9, 128), a ragged last tile, and
+    fewer row tiles than SMs for (50, 9, 128) (128-row tiles at D 128)."""
+    per_tile = 128 // 9
+    assert -(-3001 // per_tile) > _sms() and 3001 % per_tile
+    assert -(-50 // per_tile) < _sms()
+
+
+@pytest.mark.cuda
+def test_bf16_on_card_takes_only_packed_weights(card):
+    """A bf16 CUDA tensor goes only to the wgmma kernel: unpacked weights
+    raise before any launch, and S past the kernel's limit is refused."""
+    p = random_block(128, 344, seed=0)
+    x = torch.zeros(2, 9, 128, device="cuda", dtype=torch.bfloat16)
+    before = (tfb.LAUNCHES, tfb.WGMMA_LAUNCHES)
+    with pytest.raises(TypeError, match="packed weights"):
+        tfb.fused_encoder_block(x, p, 8)
+    with pytest.raises(ValueError, match="sequence length"):
+        tfb.fused_encoder_block(torch.zeros(2, 65, 128, device="cuda", dtype=torch.bfloat16),
+                                tfb.pack_block(p), 8)
+    assert (tfb.LAUNCHES, tfb.WGMMA_LAUNCHES) == before
+
+
+@pytest.mark.cuda
+def test_bf16_model_launches_only_the_wgmma_kernel(card):
+    """HSIMAE-S in bf16 on the card: every block through the wgmma kernel,
+    logits close to the same model with block_reference per block."""
+    from hsimae_tpu_torch import config as tcfg
+    from hsimae_tpu_torch.models import hsimae as th
+
+    cfg = tcfg.preset("HSIMAE-S", compute_dtype=torch.bfloat16)
+    model = th.build_hsi_vit(cfg, 7, seed=1, device="cuda")
+    x = torch.randn(64, 9, 9, 32, generator=torch.Generator().manual_seed(1)).cuda()
+    before = (tfb.LAUNCHES, tfb.WGMMA_LAUNCHES)
+    with torch.inference_mode():
+        got = model.classify(x)
+        n = tfb.WGMMA_LAUNCHES - before[1]
+        orig = th.fused_encoder_block
+        th.fused_encoder_block = lambda v, pk, h: tfb.block_reference(v, pk.params, h)
+        try:
+            ref = model.classify(x)
+        finally:
+            th.fused_encoder_block = orig
+    assert tfb.LAUNCHES == before[0]
+    assert n == 2 * cfg.s_depth + cfg.fusion_depth
+    assert ((got - ref).abs() / ref.abs().clamp(min=1.0)).max().item() <= 5e-2
