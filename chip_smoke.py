@@ -9,20 +9,23 @@ Phases, each of a fixed size; any failure exits non-zero:
 2. build: compiles every ``hsimae_tpu_torch/ops/csrc/*.cu`` with nvcc, one
    process per source, all at once, and prints ptxas's register lines;
 3. kernels against plain version: the fused-block kernels and
-   ``block_reference`` on the same seeded inputs, float32 (CUDA-core kernel)
-   and bfloat16 (wgmma kernel, packed weights), at the HSIMAE-B shapes (M cut
-   to 4096) plus D=64 and D=256; then, at the full batch-4096 shapes the main
-   path gives the kernel, both compared again and timed with CUDA events
-   beside the plain version and the port's Block modules (cuBLAS products),
-   one JSON line per case;
+   ``block_reference`` on the same seeded inputs, each route with the
+   weights ``kernel_weights`` gives it: float32 at D 64 and 128 on the
+   3xTF32 wgmma kernel (TF32 hi/lo pack), float32 at D 256 on the CUDA-core
+   kernel, bfloat16 on the bf16 wgmma kernel (bf16 pack), at the HSIMAE-B
+   shapes (M cut to 4096) plus D=64 and D=256; then, at the full batch-4096
+   shapes the main path gives the kernels (and the D 256 shape for the
+   CUDA-core kernel), compared again and timed with CUDA events beside the
+   plain version and the port's Block modules (cuBLAS products), one JSON
+   line per case;
 4. main path, float32: ``hsimae_tpu_torch.cli.evaluate.main`` classifies a
    145x145x200 synthetic scene (GWPCA to 32 bands) with HSIMAE-B, seeded
-   random weights, batch 4096. The float32 kernel must launch 21 times per
-   batch (the bf16 kernel never), and the prediction map must agree with the
-   same run through the plain PyTorch Block modules (``use_kernel=False``)
-   on >= 99.9% of pixels;
-5. main path, bfloat16 (the CLI's default dtype): the same scene; the wgmma
-   kernel must launch 21 times per batch (the float32 kernel never), and the
+   random weights, batch 4096. The 3xTF32 kernel must launch 21 times per
+   batch (the other kernels never), and the prediction map must agree with
+   the same run through the plain PyTorch Block modules
+   (``use_kernel=False``) on >= 99.9% of pixels;
+5. main path, bfloat16 (the CLI's default dtype): the same scene; the bf16
+   wgmma kernel must launch 21 times per batch (the others never), and the
    map must agree on >= 99.9% of pixels with the same bf16 model whose
    blocks all run ``block_reference`` (the kernel's own semantics);
 6. warm batch loops (model built once): kernel against Block modules, in
@@ -40,6 +43,7 @@ import time
 
 # Published dense peaks of an H100 SXM (NVIDIA data sheet) at its 700 W limit.
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # f32 without tensor cores
+PEAK_TF32 = 495e12  # the 3xTF32 kernel does three TF32 products per f32 product
 HBM_BYTES_PER_S = 3.35e12
 
 # HSIMAE-B: D 128, 8 heads, SwiGLU hidden 344; [M, S] per block stack at batch 4096
@@ -55,10 +59,16 @@ CHECK_SHAPES = [  # (M, S, D, hidden); M cut to 4096 rows
     (4096, 9, 64, 172), (4096, 36, 256, 684),
 ]
 TOL = {"float32": 2e-5, "bfloat16": 5e-2}  # |kernel - ref| <= tol * max(1, |ref|)
-# each stream dtype has its own kernel: float32 on the CUDA cores, bfloat16 on wgmma
-KERNEL_OF = {"float32": "fused_block", "bfloat16": "fused_block_wgmma"}
-SOURCE = {"float32": "hsimae_tpu_torch/ops/csrc/fused_block.cu",
-          "bfloat16": "hsimae_tpu_torch/ops/csrc/fused_block_wgmma.cu"}
+# the kernels, by route (stream dtype and width): name -> (dtype, source, launch counter)
+KERNELS = {
+    "fused_block_tf32x3": ("float32", "hsimae_tpu_torch/ops/csrc/fused_block_tf32x3.cu",
+                           "TF32X3_LAUNCHES"),
+    "fused_block": ("float32", "hsimae_tpu_torch/ops/csrc/fused_block.cu", "LAUNCHES"),
+    "fused_block_wgmma": ("bfloat16", "hsimae_tpu_torch/ops/csrc/fused_block_wgmma.cu",
+                          "WGMMA_LAUNCHES"),
+}
+MAIN_KERNEL = {"float32": "fused_block_tf32x3", "bfloat16": "fused_block_wgmma"}  # at D 128
+D256_SHAPE = (4096, 36, 256)  # where the CUDA-core kernel is timed: HSIMAE-L's fusion blocks
 
 SCENE_ARGV = ["--synthetic", "--synthetic-size", "145", "--synthetic-bands", "200",
               "--synthetic-classes", "16", "--num-classes", "17",
@@ -86,6 +96,29 @@ def random_block(d: int, hid: int, gen, device):
                     w(d, d), vec(d), vec(d, 1.0), vec(d), w(d, hid), vec(hid), w(d, hid),
                     vec(hid), w(hid, d), vec(d))
     return BlockParams(*(t.to(device) for t in p))
+
+
+def kernel_of(dname: str, d: int) -> str:
+    """The kernel the wrapper launches for stream dtype ``dname`` at width d."""
+    from hsimae_tpu_torch.ops.fused_block import TF32X3_D
+
+    if dname == "bfloat16":
+        return "fused_block_wgmma"
+    return "fused_block_tf32x3" if d in TF32X3_D else "fused_block"
+
+
+def launch_counts(fb) -> dict:
+    return {name: getattr(fb, counter) for name, (_, _, counter) in KERNELS.items()}
+
+
+def weight_bytes(w) -> int:
+    """Bytes of the weights the kernel reads: the f32 BlockParams, the bf16
+    pack or the TF32 hi + lo pack (vectors included)."""
+    if hasattr(w, "hi"):
+        return 4 * (w.hi.numel() + w.lo.numel() + w.vecs.numel())
+    if hasattr(w, "image"):
+        return 2 * w.image.numel() + 4 * w.vecs.numel()
+    return sum(t.numel() * 4 for t in w)
 
 
 def block_cost(m: int, s: int, d: int, hid: int, esize: int, weight_bytes: int):
@@ -186,79 +219,117 @@ def main() -> int:
         for line in _build.build_log(name).splitlines():
             if "Used " in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
-    wg = _build.load_library("fused_block_wgmma")
-    print("  fused_block_wgmma dynamic shared memory per CTA: "
-          + ", ".join(f"D {d}: {wg.hsimae_fused_block_wgmma_smem_bytes(d)} B" for d in (64, 128, 256)),
-          flush=True)
+    for name, widths in (("fused_block_wgmma", (64, 128, 256)), ("fused_block_tf32x3", (64, 128))):
+        smem = getattr(_build.load_library(name), f"hsimae_{name}_smem_bytes")
+        print(f"  {name} dynamic shared memory per CTA: "
+              + ", ".join(f"D {d}: {smem(d)} B" for d in widths), flush=True)
 
     # ---- 3. kernels against plain version ----
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
     dnames = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
-    max_err = {"float32": 0.0, "bfloat16": 0.0}
-
-    def kernel_weights(p, dtype):
-        return fb.pack_block(p) if dtype == torch.bfloat16 else p
+    max_err = dict.fromkeys(KERNELS, 0.0)
 
     for dtype, dname in dnames.items():
         for m, s, d, hid in CHECK_SHAPES:
             p = random_block(d, hid, gen, dev)
             x = torch.randn(m, s, d, generator=gen).to(dev, dtype)
-            got = fb.fused_encoder_block(x, kernel_weights(p, dtype), d // 16)
+            kernel = kernel_of(dname, d)
+            before = launch_counts(fb)
+            got = fb.fused_encoder_block(x, fb.kernel_weights(p, dtype), d // 16)
+            after = launch_counts(fb)
+            if {k: after[k] - before[k] for k in KERNELS} != {k: int(k == kernel) for k in KERNELS}:
+                fail(f"{dname} at D {d} did not launch {kernel} once: {before} -> {after}")
             err = compare(got, fb.block_reference(x, p, d // 16), dname,
-                          {"shape": [m, s, d], "dtype": dname})
-            max_err[dname] = max(max_err[dname], err)
+                          {"kernel": kernel, "shape": [m, s, d], "dtype": dname})
+            max_err[kernel] = max(max_err[kernel], err)
 
-    keys = ("ms", "plain_ms", "modules_ms", "bound_ms")
-    per_batch = {dname: dict.fromkeys(keys, 0.0) for dname in max_err}
-    bound_kinds = {dname: set() for dname in max_err}
-    for dtype, dname in dnames.items():
-        for name, ((m, s, d), count) in MAIN_SHAPES.items():
-            p = random_block(d, HID_B, gen, dev)
-            w = kernel_weights(p, dtype)
-            blk = block_module(p, HEADS_B, dtype)
-            x = torch.randn(m, s, d, generator=gen).to(dev, dtype)
-            err = compare(fb.fused_encoder_block(x, w, HEADS_B), fb.block_reference(x, p, HEADS_B),
-                          dname, {"block": name, "shape": [m, s, d], "dtype": dname})
-            max_err[dname] = max(max_err[dname], err)
-            with torch.inference_mode():
-                ms = time_ms(lambda: fb.fused_encoder_block(x, w, HEADS_B), iters=10)
-                plain_ms = time_ms(lambda: fb.block_reference(x, p, HEADS_B), iters=3)
-                modules_ms = time_ms(lambda: blk(x), iters=5)
-            wbytes = (w.image.numel() * 2 + w.vecs.numel() * 4 if dtype == torch.bfloat16
-                      else sum(t.numel() * 4 for t in p))
-            flops, nbytes = block_cost(m, s, d, HID_B, x.element_size(), wbytes)
-            t_ops, t_bytes = flops / PEAK_FLOPS[dname] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-            bound_ms = max(t_ops, t_bytes)
-            bound_by = "operations" if t_ops >= t_bytes else "bytes"
-            print(json.dumps({"kernel": KERNEL_OF[dname], "block": name, "shape": [m, s, d],
-                              "dtype": dname, "ms": ms, "plain_ms": plain_ms,
-                              "modules_ms": modules_ms, "bound_ms": bound_ms,
-                              "bound_by": bound_by, "share_of_bound": bound_ms / ms,
-                              "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
-                              "tflops": flops / ms / 1e9}), flush=True)
-            for k, v in zip(keys, (ms, plain_ms, modules_ms, bound_ms)):
-                per_batch[dname][k] += count * v
-            bound_kinds[dname].add(bound_by)
-            del x, p, w, blk
+    def bounds(dname, kernel, m, s, d, hid, esize, w):
+        """(bound_ms, bound_by, extra keys): operations over the rate of the
+        kernel's arithmetic against bytes over 3.35 TB/s. float32 gets both
+        bounds: on the CUDA cores (bound_ms) and as three TF32 products with
+        the hi + lo pack (bound_3xtf32_ms)."""
+        flops, nbytes = block_cost(m, s, d, hid, esize, weight_bytes(w))
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        if dname == "float32":
+            p32 = w if isinstance(w, fb.BlockParams) else w.params
+            f32_bytes = block_cost(m, s, d, hid, esize, weight_bytes(p32))[1]
+            t_ops = flops / PEAK_FLOPS[dname] * 1e3
+            bound = max(t_ops, f32_bytes / HBM_BYTES_PER_S * 1e3)
+            by = "operations" if t_ops >= f32_bytes / HBM_BYTES_PER_S * 1e3 else "bytes"
+            extra = {"gflop": flops / 1e9, "mbytes": f32_bytes / 1e6}
+            if kernel == "fused_block_tf32x3":
+                t3 = 3 * flops / PEAK_TF32 * 1e3
+                extra.update(bound_3xtf32_ms=max(t3, t_bytes),
+                             bound_3xtf32_by="operations" if t3 >= t_bytes else "bytes",
+                             mbytes_3xtf32=nbytes / 1e6)
+            return bound, by, extra
+        t_ops = flops / PEAK_FLOPS[dname] * 1e3
+        return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+                {"gflop": flops / 1e9, "mbytes": nbytes / 1e6})
+
+    def l2_weight_mb(kernel, m, s, d, w):
+        """Weight bytes a launch pulls from L2: the whole pack once per row tile."""
+        if kernel == "fused_block":
+            return None  # streamed from L2 per product into registers: not counted
+        rows = 64 if kernel == "fused_block_tf32x3" or d > 128 else 128
+        tiles = -(-m // (rows // s))
+        return tiles * weight_bytes(w) / 1e6
+
+    keys = ("ms", "plain_ms", "modules_ms", "bound_ms", "bound_3xtf32_ms")
+    per_batch = {k: dict.fromkeys(keys, 0.0) for k in MAIN_KERNEL.values()}
+    bound_kinds = {k: set() for k in KERNELS}
+    d256 = {}
+    cases = [(dtype, dname, name, shape, count) for dtype, dname in dnames.items()
+             for name, (shape, count) in MAIN_SHAPES.items()]
+    cases.append((torch.float32, "float32", "fusion_L", D256_SHAPE, 0))
+    for dtype, dname, name, (m, s, d), count in cases:
+        hid = HID_B if d == D_B else 684
+        kernel = kernel_of(dname, d)
+        p = random_block(d, hid, gen, dev)
+        w = fb.kernel_weights(p, dtype)
+        blk = block_module(p, d // 16, dtype)
+        x = torch.randn(m, s, d, generator=gen).to(dev, dtype)
+        err = compare(fb.fused_encoder_block(x, w, d // 16), fb.block_reference(x, p, d // 16),
+                      dname, {"kernel": kernel, "block": name, "shape": [m, s, d], "dtype": dname})
+        max_err[kernel] = max(max_err[kernel], err)
+        with torch.inference_mode():
+            ms = time_ms(lambda: fb.fused_encoder_block(x, w, d // 16), iters=10)
+            plain_ms = time_ms(lambda: fb.block_reference(x, p, d // 16), iters=3)
+            modules_ms = time_ms(lambda: blk(x), iters=5)
+        bound_ms, bound_by, extra = bounds(dname, kernel, m, s, d, hid, x.element_size(), w)
+        share = {"share_of_bound": bound_ms / ms}
+        if "bound_3xtf32_ms" in extra:  # the 3xTF32 kernel is read against its own arithmetic
+            share = {"share_of_bound": extra["bound_3xtf32_ms"] / ms, "share_of": "bound_3xtf32_ms"}
+        row = {"kernel": kernel, "block": name, "shape": [m, s, d], "dtype": dname, "ms": ms,
+               "plain_ms": plain_ms, "modules_ms": modules_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, **extra, **share,
+               "tflops": extra["gflop"] / ms, "l2_weight_mb": l2_weight_mb(kernel, m, s, d, w)}
+        print(json.dumps(row), flush=True)
+        bound_kinds[kernel].add(bound_by)
+        if count:
+            for k in keys:
+                per_batch[kernel][k] += count * row.get(k, 0.0)
+        else:
+            d256 = row
+        del x, p, w, blk
     torch.cuda.empty_cache()
 
     # ---- 4, 5. main path, float32 then bfloat16, through the CLI ----
     launches, results = {}, {}
     for dname, argv in MAIN_ARGV.items():
-        fb.LAUNCHES = fb.WGMMA_LAUNCHES = 0
+        fb.TF32X3_LAUNCHES = fb.LAUNCHES = fb.WGMMA_LAUNCHES = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = cli_evaluate.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = {"fused_block": fb.LAUNCHES, "fused_block_wgmma": fb.WGMMA_LAUNCHES}
+        counts = launch_counts(fb)
         args = cli_evaluate.build_parser().parse_args(argv)
         n_pix = args.synthetic_size ** 2
         n_batches = math.ceil(n_pix / args.batch_size)
-        own = KERNEL_OF[dname]
-        other = next(k for k in counts if k != own)
-        if counts[own] != 21 * n_batches or counts[other] != 0:
+        own = MAIN_KERNEL[dname]
+        if counts != {k: 21 * n_batches * (k == own) for k in KERNELS}:
             fail(f"{dname} main path launched {counts}, expected {21 * n_batches} of {own} only")
         launches[own] = counts[own]
         pred = res.pred_map
@@ -282,7 +353,7 @@ def main() -> int:
             orig = hsimae_model.fused_encoder_block
             if blocks_by_reference:  # every block as block_reference, nothing else changed
                 hsimae_model.fused_encoder_block = lambda x, w, h: fb.block_reference(
-                    x, w.params if isinstance(w, fb.BlockPack) else w, h)
+                    x, w if isinstance(w, fb.BlockParams) else w.params, h)
             try:
                 predict_scene(model, scene, ecfg)  # first call: the kernel layout of the weights
                 torch.cuda.synchronize()
@@ -302,7 +373,7 @@ def main() -> int:
         pred = res.pred_map
         agree = float((ref_map == pred).mean())
         print(json.dumps({"main_path": "cli.evaluate", "dtype": dname, "pixels": n_pix,
-                          "batches": n_batches, "launches": launches[KERNEL_OF[dname]],
+                          "batches": n_batches, "launches": launches[MAIN_KERNEL[dname]],
                           "wall_s": wall, "pixels_per_s": n_pix / wall,
                           "warm_predict_kernel_s": kernel_s, "warm_predict_modules_s": modules_s,
                           "warm_kernel_pixels_per_s": n_pix / kernel_s,
@@ -314,14 +385,30 @@ def main() -> int:
                  f"(< {MIN_AGREEMENT})")
 
     # ---- 7. result ----
-    print(json.dumps({"kernels": [{
-        "name": KERNEL_OF[dname], "route": "cuda", "source": SOURCE[dname],
-        "replaces": "hsimae_tpu/ops/fused_block.py:158", "dtype": dname,
-        "launches": launches[KERNEL_OF[dname]], "max_abs_err": max_err[dname],
-        **per_batch[dname],
-        "bound_by": "operations" if bound_kinds[dname] == {"operations"} else "bytes",
-        "library_ms": None,
-    } for dname in max_err]}))
+    # main-path kernels: per batch of the main path (21 launches); the
+    # CUDA-core kernel serves float32 at D 256 only, off this main path:
+    # launches 0, times of one launch at HSIMAE-L's fusion shape
+    lines = []
+    for name, (dname, source, _) in KERNELS.items():
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": "hsimae_tpu/ops/fused_block.py:158", "dtype": dname,
+                 "launches": launches.get(name, 0), "max_abs_err": max_err[name]}
+        if name in per_batch:
+            times = dict(per_batch[name])
+            if name != "fused_block_tf32x3":
+                times.pop("bound_3xtf32_ms")
+            entry.update(times, per="batch of 21 launches", widths=[64, 128] if dname == "float32"
+                         else [64, 128, 256])
+            if name == "fused_block_tf32x3":
+                entry.update(share_of_bound=times["bound_3xtf32_ms"] / times["ms"],
+                             share_of="bound_3xtf32_ms")
+        else:
+            entry.update({k: d256[k] for k in ("ms", "plain_ms", "modules_ms", "bound_ms")},
+                         per="launch", shape=d256["shape"], widths=[256])
+        entry["bound_by"] = "operations" if bound_kinds[name] == {"operations"} else "bytes"
+        entry["library_ms"] = None
+        lines.append(entry)
+    print(json.dumps({"kernels": lines}))
     print(f"nvidia-smi: {smi_line}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

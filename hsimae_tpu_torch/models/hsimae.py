@@ -20,7 +20,7 @@ from torch import nn
 from hsimae_tpu_torch.config import ModelConfig
 from hsimae_tpu_torch.models.layers import Block, LayerNorm, Linear, PatchEmbed, init_block_, init_trunc_normal
 from hsimae_tpu_torch.models.pos_embed import sincos_3d
-from hsimae_tpu_torch.ops.fused_block import fused_encoder_block, pack_block, params_from_block
+from hsimae_tpu_torch.ops.fused_block import fused_encoder_block, kernel_weights, params_from_block
 
 CLS_HEAD_NAME = "cls_head"
 
@@ -54,10 +54,11 @@ class HSIMAE(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Seeded init of every parameter and of the sincos table."""
         c = self.cfg
+        proj = self.patch_embed.proj.weight  # [C, 1, u, p, p]
         if c.trunc_init:  # reference quirk: the patch projection draws with std 1
-            init_trunc_normal(self.patch_embed.proj.weight, 1.0, generator)
-        else:
-            nn.init.xavier_uniform_(self.patch_embed.proj.weight, generator=generator)
+            init_trunc_normal(proj, 1.0, generator)
+        else:  # xavier over the Dense kernel's fans (u*p*p in, C out), as JAX draws it
+            nn.init.xavier_uniform_(proj.view(proj.shape[0], -1), generator=generator)
         nn.init.zeros_(self.patch_embed.proj.bias)
         for blk in (*self.blocks_1, *self.blocks_2, *self.blocks):
             init_block_(blk, generator, c.trunc_init)
@@ -72,11 +73,12 @@ class HSIMAE(nn.Module):
 
     def kernel_params(self, name: str) -> list:
         """The weights of block list ``name`` laid out for the kernel of the
-        stream dtype ``cfg.compute_dtype``: :class:`BlockParams` for float32,
-        a :class:`BlockPack` (bf16 tiles, padded hidden axis) for bfloat16.
-        Built once (the entry is keyed by dtype) and rebuilt only after a
-        weight is replaced (``.to``, ``load_state_dict``) or changed in place
-        (its version counter)."""
+        stream dtype ``cfg.compute_dtype`` (:func:`kernel_weights`): a
+        :class:`Tf32Pack` (TF32 hi and lo tiles) for float32 at D 64 and 128,
+        :class:`BlockParams` for float32 at D 256, a :class:`BlockPack` (bf16
+        tiles) for bfloat16. Built once (the entry is keyed by dtype) and
+        rebuilt only after a weight is replaced (``.to``,
+        ``load_state_dict``) or changed in place (its version counter)."""
         dtype = self.cfg.compute_dtype
         blocks = getattr(self, name)
         weights = list(blocks.parameters())
@@ -87,9 +89,7 @@ class HSIMAE(nn.Module):
             # keeps the weights it was built from alive, so no new weight can
             # take one of their addresses while it stands
             with torch.inference_mode(False), torch.no_grad():
-                params = [params_from_block(b) for b in blocks]
-                if dtype == torch.bfloat16:
-                    params = [pack_block(p) for p in params]
+                params = [kernel_weights(params_from_block(b), dtype) for b in blocks]
                 hit = (key, params, [t.detach() for t in weights])
             self._kernel_params[(name, dtype)] = hit
         return hit[1]

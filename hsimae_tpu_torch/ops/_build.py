@@ -32,6 +32,13 @@ SIGNATURES = {
         "hsimae_fused_block": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
         "hsimae_fused_block_max_seq": (_I, [_I]),
     },
+    "fused_block_tf32x3": {
+        "hsimae_fused_block_tf32x3": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+        "hsimae_fused_block_tf32x3_max_seq": (_I, [_I]),
+        "hsimae_fused_block_tf32x3_max_hidden": (_I, [_I]),
+        "hsimae_fused_block_tf32x3_smem_bytes": (_I, [_I]),
+        "hsimae_fused_block_tf32x3_image_bytes": (ctypes.c_longlong, [_I, _I]),
+    },
     "fused_block_wgmma": {
         "hsimae_fused_block_wgmma": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
         "hsimae_fused_block_wgmma_max_seq": (_I, [_I]),
@@ -83,10 +90,11 @@ def _finish(name: str, started) -> float:
     return time.perf_counter() - t0
 
 
-def build_all() -> dict:
-    """Build every library of ``SIGNATURES``, one nvcc per source, all
-    started together; returns each one's wall seconds (0.0: already built)."""
-    started = {name: _start(name) for name in SIGNATURES}
+def build_all(names: tuple = tuple(SIGNATURES), extra_flags: tuple = ()) -> dict:
+    """Build the libraries ``names`` (every one of ``SIGNATURES`` by default)
+    with nvcc's ``extra_flags``, one nvcc per source, all started together;
+    returns each one's wall seconds (0.0: already built)."""
+    started = {name: _start(name, extra_flags) for name in names}
     return {name: _finish(name, s) for name, s in started.items()}
 
 

@@ -1,24 +1,32 @@
 """One fused pre-LN transformer block: CUDA kernels, wrapper and plain version.
 
 Counterpart of ``hsimae_tpu/ops/fused_block.py``. The Pallas TPU kernel
-(``_kernel``, math ``_block_math``) becomes two hand-written CUDA kernels
-for sm_90a, one per stream dtype, built by ``nvcc`` and bound with
-``ctypes`` (:mod:`hsimae_tpu_torch.ops._build`):
+(``_kernel``, math ``_block_math``) becomes three hand-written CUDA kernels
+for sm_90a, chosen by stream dtype and width (a fixed route, never a
+fallback), built by ``nvcc`` and bound with ``ctypes``
+(:mod:`hsimae_tpu_torch.ops._build`):
 
-* float32: ``csrc/fused_block.cu``, on the CUDA cores (TF32 tensor cores
-  would not hold the 2e-5 check); takes :class:`BlockParams`;
+* float32 at D 64 and 128: ``csrc/fused_block_tf32x3.cu``, 3xTF32 wgmma on
+  the tensor cores (each product as ``a_lo b_hi + a_hi b_lo + a_hi b_hi``,
+  which holds the 2e-5 check that one TF32 product does not); takes a
+  :class:`Tf32Pack`, the weights split once into TF32 hi and lo images by
+  :func:`pack_block_tf32`;
+* float32 at D 256: ``csrc/fused_block.cu``, on the CUDA cores (the 3xTF32
+  kernel's 64-row tile of residual and q/k/v does not fit in shared memory
+  at that width); takes :class:`BlockParams`;
 * bfloat16: ``csrc/fused_block_wgmma.cu``, on the tensor cores (wgmma fed by
   bulk async copies through a shared-memory ring, persistent CTAs); takes a
   :class:`BlockPack`, the block's weights packed once by :func:`pack_block`.
 
-One launch covers all M sequences; the JAX package's ``fused_block_sliced``
-(a TPU compile workaround) has no counterpart.
+:func:`kernel_weights` gives the weights in the form the route takes. One
+launch covers all M sequences; the JAX package's ``fused_block_sliced`` (a
+TPU compile workaround) has no counterpart.
 
 * :func:`block_reference` is the plain PyTorch version of the block math.
 * :func:`fused_encoder_block` is the wrapper: on a CPU tensor it returns the
-  plain version; on a CUDA tensor it launches the dtype's kernel or raises.
-  ``LAUNCHES`` counts launches of the float32 kernel, ``WGMMA_LAUNCHES``
-  those of the bfloat16 kernel.
+  plain version; on a CUDA tensor it launches the route's kernel or raises.
+  ``TF32X3_LAUNCHES``, ``LAUNCHES`` and ``WGMMA_LAUNCHES`` count launches of
+  the 3xTF32, the float32 CUDA-core and the bfloat16 kernel.
 """
 
 from __future__ import annotations
@@ -31,12 +39,15 @@ import torch.nn.functional as F
 
 from hsimae_tpu_torch.ops import _build
 
-# Kernel launches since import (or since a caller last set them to 0):
-# the float32 CUDA-core kernel and the bfloat16 wgmma kernel.
+# Kernel launches since import (or since a caller last set them to 0): the
+# float32 3xTF32 kernel, the float32 CUDA-core kernel (D 256) and the
+# bfloat16 wgmma kernel.
+TF32X3_LAUNCHES = 0
 LAUNCHES = 0
 WGMMA_LAUNCHES = 0
 
 SUPPORTED_D = (64, 128, 256)
+TF32X3_D = (64, 128)  # float32 widths of the 3xTF32 kernel; D 256 runs fused_block.cu
 HEAD_DIM = 16
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -47,6 +58,11 @@ _DTYPES = (torch.float32, torch.bfloat16)
 HIDDEN_MULTIPLE = 16  # wgmma's K step for bf16: the padded hidden axis
 _ATOM_K = 64
 _HID_TILE = 64  # hidden columns per interleaved [W1 | W3] tile
+
+# Weight pack of the 3xTF32 kernel: the same tile order with atoms of 32
+# float32 K columns (128 bytes), the hidden axis padded to TF32's K step.
+TF32_HIDDEN_MULTIPLE = 8
+_TF32_ATOM_K = 32
 
 
 class BlockParams(NamedTuple):
@@ -101,28 +117,73 @@ class BlockPack(NamedTuple):
     vecs: torch.Tensor  # float32, 1-D: ln1 (scale, bias), bq, bk, bv, bo, ln2, b2, b1, b3
 
 
-def padded_hidden(hidden: int) -> int:
-    return -(-hidden // HIDDEN_MULTIPLE) * HIDDEN_MULTIPLE
+class Tf32Pack(NamedTuple):
+    """One block's weights as the 3xTF32 kernel reads them, built once by
+    :func:`pack_block_tf32`: two images of the same layout."""
+
+    params: BlockParams  # the float32 weights it was packed from
+    hi: torch.Tensor  # float32, 1-D: rna_tf32(w), swizzled tiles in the kernel's order
+    lo: torch.Tensor  # float32, 1-D: rna_tf32(w - hi), the same layout
+    vecs: torch.Tensor  # float32, 1-D: as BlockPack.vecs
+
+
+def padded_hidden(hidden: int, multiple: int = HIDDEN_MULTIPLE) -> int:
+    return -(-hidden // multiple) * multiple
 
 
 def swizzle128(t: torch.Tensor) -> torch.Tensor:
-    """The 128-byte swizzle of bf16 tiles ``[..., rows, 64]``: the 16-byte
-    chunk c of row r moves to chunk ``c ^ (r % 8)``. It is its own inverse."""
-    rows = t.shape[-2]
+    """The 128-byte swizzle of tiles ``[..., rows, 8 c]`` whose rows are
+    eight 16-byte chunks of c elements (64 bf16 or 32 float32 columns): the
+    chunk j of row r moves to chunk ``j ^ (r % 8)``. It is its own inverse."""
+    rows, cols = t.shape[-2:]
     r = torch.arange(rows, device=t.device)
     idx = torch.arange(8, device=t.device)[None, :] ^ (r[:, None] % 8)  # [rows, 8]
-    chunks = t.reshape(*t.shape[:-1], 8, 8)
+    chunks = t.reshape(*t.shape[:-1], 8, cols // 8)
     idx = idx[..., None].expand(*chunks.shape[-3:]).expand_as(chunks)
     return torch.gather(chunks, -2, idx).reshape(t.shape)
 
 
-def _atoms(w: torch.Tensor, rows: int) -> torch.Tensor:
-    """``w [N, K]`` (``[out, in]``) as swizzled tiles of ``rows`` x 64,
-    output-row blocks outer, K atoms inner; K zero-padded to 64."""
+def rna_tf32(t: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, as ``cvt.rna.tf32.f32`` rounds: the 13 low mantissa bits end zero.
+    Adding half of the dropped range to the bit pattern rounds the
+    magnitude, whatever the sign."""
+    bits = t.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _atoms(w: torch.Tensor, rows: int, atom_k: int) -> torch.Tensor:
+    """``w [N, K]`` (``[out, in]``) as swizzled tiles of ``rows`` x
+    ``atom_k`` (128 bytes a row), output-row blocks outer, K atoms inner; K
+    zero-padded to ``atom_k``."""
     n, k = w.shape
-    w = F.pad(w, (0, -k % _ATOM_K))
-    tiles = w.reshape(n // rows, rows, -1, _ATOM_K).transpose(1, 2)
+    w = F.pad(w, (0, -k % atom_k))
+    tiles = w.reshape(n // rows, rows, -1, atom_k).transpose(1, 2)
     return swizzle128(tiles).reshape(-1)
+
+
+def _image(p: BlockParams, dtype: torch.dtype, hp: int, atom_k: int) -> torch.Tensor:
+    """Every matrix cast to ``dtype``, transposed to ``[out, in]``, cut into
+    tiles in the kernels' order (above) and swizzled, the hidden axis
+    zero-padded to ``hp``."""
+    d, hid = p.w1.shape
+    pad = hp - hid
+    w1t = F.pad(p.w1.t().to(dtype), (0, 0, 0, pad))  # [hp, d]
+    w3t = F.pad(p.w3.t().to(dtype), (0, 0, 0, pad))
+    w2t = F.pad(p.w2.t().to(dtype), (0, pad))  # [d, hp]
+    nt = min(d, 128)
+    parts = [_atoms(w.t().to(dtype), nt, atom_k) for w in (p.wq, p.wk, p.wv, p.wo)]
+    for h0 in range(0, hp, _HID_TILE):
+        sl = slice(h0, min(h0 + _HID_TILE, hp))
+        parts.append(_atoms(torch.cat([w1t[sl], w3t[sl]]), 2 * (sl.stop - h0), atom_k))
+    parts.append(_atoms(w2t, nt, atom_k))
+    return torch.cat(parts).contiguous()
+
+
+def _vecs(p: BlockParams, hp: int) -> torch.Tensor:
+    pad = hp - p.b1.shape[0]
+    return torch.cat([p.ln1_scale, p.ln1_bias, p.bq, p.bk, p.bv, p.bo, p.ln2_scale, p.ln2_bias,
+                      p.b2, F.pad(p.b1, (0, pad)), F.pad(p.b3, (0, pad))]).float().contiguous()
 
 
 @torch.no_grad()
@@ -132,22 +193,34 @@ def pack_block(p: BlockParams) -> BlockPack:
     the kernel's order (above) and swizzled; the hidden axis
     zero-padded to a multiple of 16 (exact: silu(0) * 0 = 0, and the padded
     rows of W2 are zero). Done once per model, never per launch."""
-    d, hid = p.w1.shape
-    hp = padded_hidden(hid)
-    pad = hp - hid
-    bf = torch.bfloat16
-    w1t = F.pad(p.w1.t().to(bf), (0, 0, 0, pad))  # [hp, d]
-    w3t = F.pad(p.w3.t().to(bf), (0, 0, 0, pad))
-    w2t = F.pad(p.w2.t().to(bf), (0, pad))  # [d, hp]
-    nt = min(d, 128)
-    parts = [_atoms(w.t().to(bf), nt) for w in (p.wq, p.wk, p.wv, p.wo)]
-    for h0 in range(0, hp, _HID_TILE):
-        sl = slice(h0, min(h0 + _HID_TILE, hp))
-        parts.append(_atoms(torch.cat([w1t[sl], w3t[sl]]), 2 * (sl.stop - h0)))
-    parts.append(_atoms(w2t, nt))
-    vecs = torch.cat([p.ln1_scale, p.ln1_bias, p.bq, p.bk, p.bv, p.bo, p.ln2_scale, p.ln2_bias,
-                      p.b2, F.pad(p.b1, (0, pad)), F.pad(p.b3, (0, pad))]).float()
-    return BlockPack(p, torch.cat(parts).contiguous(), vecs.contiguous())
+    hp = padded_hidden(p.w1.shape[-1])
+    return BlockPack(p, _image(p, torch.bfloat16, hp, _ATOM_K), _vecs(p, hp))
+
+
+@torch.no_grad()
+def pack_block_tf32(p: BlockParams) -> Tf32Pack:
+    """Pack one block for the 3xTF32 kernel, on the weights' device: the
+    float32 image in the bf16 pack's tile order, with atoms of 32 K columns
+    and the hidden axis zero-padded to a multiple of 8, split into
+    ``hi = rna_tf32(w)`` and ``lo = rna_tf32(w - hi)`` (wgmma reads TF32
+    operands without rounding their low bits, so both are rounded here;
+    ``hi + lo`` is within 2^-21 of w, relative). Done once per model."""
+    hp = padded_hidden(p.w1.shape[-1], TF32_HIDDEN_MULTIPLE)
+    image = _image(p, torch.float32, hp, _TF32_ATOM_K)
+    hi = rna_tf32(image)
+    return Tf32Pack(p, hi, rna_tf32(image - hi), _vecs(p, hp))
+
+
+def kernel_weights(p: BlockParams, dtype: torch.dtype) -> BlockParams | BlockPack | Tf32Pack:
+    """The weights in the form the kernel of stream ``dtype`` at the
+    block's width takes: a :class:`BlockPack` for bfloat16, a
+    :class:`Tf32Pack` for float32 at D 64 and 128, and the
+    :class:`BlockParams` themselves for float32 at D 256."""
+    if dtype == torch.bfloat16:
+        return pack_block(p)
+    if p.wq.shape[0] in TF32X3_D:
+        return pack_block_tf32(p)
+    return p
 
 
 def _ln(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -220,7 +293,7 @@ def _stream(x: torch.Tensor) -> int:
 
 
 def _launch(x: torch.Tensor, p: BlockParams, num_heads: int) -> torch.Tensor:
-    """The float32 CUDA-core kernel."""
+    """The float32 CUDA-core kernel (D 256)."""
     global LAUNCHES
     lib = _build.load_library("fused_block")
     _check(x, p, num_heads, lib.hsimae_fused_block_max_seq(x.shape[-1]))
@@ -265,20 +338,62 @@ def _launch_wgmma(x: torch.Tensor, pack: BlockPack, num_heads: int) -> torch.Ten
     return out
 
 
-def fused_encoder_block(x: torch.Tensor, p: BlockParams | BlockPack, num_heads: int) -> torch.Tensor:
+def _launch_tf32x3(x: torch.Tensor, pack: Tf32Pack, num_heads: int) -> torch.Tensor:
+    """The float32 3xTF32 tensor-core kernel (D 64 and 128)."""
+    global TF32X3_LAUNCHES
+    lib = _build.load_library("fused_block_tf32x3")
+    d = x.shape[-1]
+    _check(x, pack.params, num_heads, lib.hsimae_fused_block_tf32x3_max_seq(d))
+    hp = padded_hidden(pack.params.w1.shape[-1], TF32_HIDDEN_MULTIPLE)
+    if hp > lib.hsimae_fused_block_tf32x3_max_hidden(d):
+        raise ValueError(f"unsupported padded hidden width {hp} at D={d}")
+    n = lib.hsimae_fused_block_tf32x3_image_bytes(d, hp) // 4
+    for name, t, numel in (("hi", pack.hi, n), ("lo", pack.lo, n), ("vecs", pack.vecs, 9 * d + 2 * hp)):
+        if t.dtype != torch.float32 or t.device != x.device or not t.is_contiguous() \
+                or t.numel() != numel or t.data_ptr() % 16:
+            raise ValueError(f"pack {name} must be a contiguous, 16-byte aligned float32 tensor "
+                             f"of {numel} on {x.device}")
+    m, s, _ = x.shape
+    out = torch.empty_like(x)
+    if m == 0:
+        return out
+    with torch.cuda.device(x.device):
+        rc = lib.hsimae_fused_block_tf32x3(x.data_ptr(), out.data_ptr(), pack.hi.data_ptr(),
+                                           pack.lo.data_ptr(), pack.vecs.data_ptr(), m, s, d, hp,
+                                           num_heads, _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"fused block 3xTF32 kernel launch failed: cudaError_t {rc}")
+    TF32X3_LAUNCHES += 1
+    return out
+
+
+def fused_encoder_block(x: torch.Tensor, p: BlockParams | BlockPack | Tf32Pack,
+                        num_heads: int) -> torch.Tensor:
     """Apply one transformer block to ``[M, S, D]`` sequences.
 
     On a CPU tensor this is :func:`block_reference`. On a CUDA tensor it
-    launches, on the current stream (no synchronisation), the float32 kernel
-    for float32 and the bfloat16 wgmma kernel for bfloat16, which takes the
-    weights packed (a :class:`BlockPack`); anything else raises."""
-    params = p.params if isinstance(p, BlockPack) else p
+    launches, on the current stream (no synchronisation), the kernel of the
+    route fixed by dtype and width, with the weights in the form
+    :func:`kernel_weights` gives: float32 at D 64 and 128 the 3xTF32 wgmma
+    kernel (a :class:`Tf32Pack`), float32 at D 256 the CUDA-core kernel
+    (:class:`BlockParams`), bfloat16 the wgmma kernel (a
+    :class:`BlockPack`). Anything else raises."""
+    params = p if isinstance(p, BlockParams) else p.params
     if x.device.type == "cpu":
         return block_reference(x, params, num_heads)
     if x.device.type != "cuda":
         raise ValueError(f"fused_encoder_block runs on cpu or cuda tensors, got {x.device}")
-    if x.dtype != torch.bfloat16:
-        return _launch(x, params, num_heads)
-    if not isinstance(p, BlockPack):
-        raise TypeError("the bfloat16 kernel takes packed weights: pass pack_block(params)")
-    return _launch_wgmma(x, p, num_heads)
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"fused block kernel takes float32 or bfloat16, got {x.dtype}")
+    if x.dtype == torch.bfloat16:
+        if not isinstance(p, BlockPack):
+            raise TypeError("the bfloat16 kernel takes packed weights: pass pack_block(params)")
+        return _launch_wgmma(x, p, num_heads)
+    if x.dim() == 3 and x.shape[-1] in TF32X3_D:
+        if not isinstance(p, Tf32Pack):
+            raise TypeError("the float32 kernel at D 64 and 128 takes packed weights: "
+                            "pass pack_block_tf32(params)")
+        return _launch_tf32x3(x, p, num_heads)
+    if not isinstance(p, BlockParams):
+        raise TypeError("the float32 kernel at D 256 takes BlockParams")
+    return _launch(x, p, num_heads)

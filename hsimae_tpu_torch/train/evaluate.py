@@ -4,7 +4,7 @@ Counterpart of ``classify_scene`` / ``evaluate_scene`` in
 ``hsimae_tpu/train/evaluate.py``:
 
 * an inference model (encoder + AGG head, no decoder) takes the given
-  weights by key intersection and must cover ``cls_head``;
+  weights by key and shape intersection and must cover ``cls_head``;
 * every pixel gets a patch centred on it (symmetric padding), gathered on
   the device in large batches;
 * background is excluded at argmax over ``logits[:, 1:]``, then +1, on the
@@ -36,10 +36,14 @@ class SceneEvalResult:
 
 
 def _load_weights(model: torch.nn.Module, state_dict: Dict[str, torch.Tensor]) -> None:
-    """Key-intersection restore: keys the model lacks (a decoder) are
-    ignored; a missing ``cls_head`` raises, other missing keys warn."""
+    """Key-and-shape-intersection restore (``partial_restore`` of the JAX
+    package): a source tensor is kept only where the model has its key with
+    the same shape, so keys the model lacks (a decoder) and tensors of
+    another shape (a head with another class count) are ignored. A
+    ``cls_head`` left uncovered raises; other uncovered keys warn."""
     own = model.state_dict()
-    usable = {k: v for k, v in state_dict.items() if k in own}
+    usable = {k: v for k, v in state_dict.items()
+              if k in own and tuple(v.shape) == tuple(own[k].shape)}
     missing = [k for k in own if k not in usable]
     if any(k.split(".")[0] == CLS_HEAD_NAME for k in missing):
         raise ValueError(

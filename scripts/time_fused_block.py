@@ -15,9 +15,11 @@ checkout), it prints one JSON line per case with the kernel's time by
 - ``back_to_back_ms``: CUDA events around 10 back-to-back calls divided by
   10, the median of 3 rounds (launch gaps hidden while the host stays ahead),
 
-then a last line with the card's name and power limit. Where the checkout
-has ``pack_block``, bfloat16 gets packed weights (its wgmma kernel);
-otherwise the kernel takes ``BlockParams`` in both dtypes. Needs a CUDA card.
+then a last line with the card's name and power limit. Each kernel gets its
+weights in the form that checkout's wrapper takes: ``kernel_weights`` where
+the checkout has it (the float32 3xTF32 pack, the bfloat16 pack), else
+``pack_block`` for bfloat16 and ``BlockParams`` for float32. Needs a CUDA
+card.
 """
 
 from __future__ import annotations
@@ -94,12 +96,16 @@ def main() -> int:
                            w(D, HIDDEN), vec(HIDDEN), w(HIDDEN, D), vec(D))
         return fb.BlockParams(*(t.cuda() for t in p))
 
-    packs = hasattr(fb, "pack_block")
+    def kernel_weights(p, dtype):
+        if hasattr(fb, "kernel_weights"):
+            return fb.kernel_weights(p, dtype)
+        return fb.pack_block(p) if hasattr(fb, "pack_block") and dtype == torch.bfloat16 else p
+
     gen = torch.Generator().manual_seed(0)
     for dtype in (torch.float32, torch.bfloat16):
         for name, (m, s, d) in SHAPES.items():
             p = weights(gen)
-            w = fb.pack_block(p) if packs and dtype == torch.bfloat16 else p
+            w = kernel_weights(p, dtype)
             x = torch.randn(m, s, d, generator=gen).to("cuda", dtype)
             with torch.inference_mode():
                 run = lambda: fb.fused_encoder_block(x, w, HEADS)  # noqa: E731

@@ -6,11 +6,14 @@ it also runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda.py -q
 
 Tolerances as in chip_smoke.py: |kernel - plain| <= tol * max(1, |plain|),
-f32 2e-5 (same arithmetic, other summation order), bf16 5e-2 (a different
-f32 sum can round to a neighbouring bf16 value).
+f32 2e-5 (3xTF32 products or f32 CUDA-core sums against f32 sums in
+another order), bf16 5e-2 (a different f32 sum can round to a neighbouring
+bf16 value).
 
-float32 runs the CUDA-core kernel (``LAUNCHES``), bfloat16 the wgmma kernel
-on packed weights (``WGMMA_LAUNCHES``).
+float32 at D 64 and 128 runs the 3xTF32 kernel on its pack
+(``TF32X3_LAUNCHES``), float32 at D 256 the CUDA-core kernel
+(``LAUNCHES``), bfloat16 the wgmma kernel on packed weights
+(``WGMMA_LAUNCHES``).
 """
 
 import pytest
@@ -33,6 +36,26 @@ def random_block(d: int, hid: int, seed: int) -> tfb.BlockParams:
     return tfb.BlockParams(*(t.cuda() for t in out))
 
 
+def counts() -> tuple:
+    return tfb.TF32X3_LAUNCHES, tfb.LAUNCHES, tfb.WGMMA_LAUNCHES
+
+
+def route(dtype, d: int) -> tuple:
+    """The launch counts one call adds on the route of (dtype, D)."""
+    if dtype == torch.bfloat16:
+        return 0, 0, 1
+    return (1, 0, 0) if d in tfb.TF32X3_D else (0, 1, 0)
+
+
+def library_of(d: int) -> str:
+    """The float32 kernel's library at width d."""
+    return "fused_block_tf32x3" if d in tfb.TF32X3_D else "fused_block"
+
+
+def scaled_err(got, ref) -> float:
+    return ((got.float() - ref.float()).abs() / ref.float().abs().clamp(min=1.0)).max().item()
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -46,46 +69,78 @@ def card():
 def test_fused_block_kernel_matches_plain_version(card, m, s, d, dtype, tol):
     p = random_block(d, swiglu_hidden_dim(d), seed=s + d)
     x = torch.randn(m, s, d, generator=torch.Generator().manual_seed(m)).to("cuda", dtype)
-    weights = tfb.pack_block(p) if dtype == torch.bfloat16 else p
-    before = (tfb.LAUNCHES, tfb.WGMMA_LAUNCHES)
-    got = tfb.fused_encoder_block(x, weights, d // 16)
+    before = counts()
+    got = tfb.fused_encoder_block(x, tfb.kernel_weights(p, dtype), d // 16)
     ref = tfb.block_reference(x, p, d // 16)
     torch.cuda.synchronize()
-    bf16 = dtype == torch.bfloat16
-    assert (tfb.LAUNCHES, tfb.WGMMA_LAUNCHES) == (before[0] + (not bf16), before[1] + bf16)
+    assert counts() == tuple(b + a for b, a in zip(before, route(dtype, d)))
     assert got.dtype == dtype and got.shape == x.shape
-    err = ((got.float() - ref.float()).abs() / ref.float().abs().clamp(min=1.0)).max().item()
+    err = scaled_err(got, ref)
     assert err <= tol, err
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [64, 128, 256])
 def test_longest_sequence_the_kernel_reports(card, d):
-    """The kernel library's own limit: S = max runs and matches the plain
-    version, S = max + 1 is refused before any launch."""
+    """The float32 kernel library's own limit at each width (the 3xTF32
+    library at D 64 and 128, the CUDA-core one at D 256): S = max runs and
+    matches the plain version, S = max + 1 is refused before any launch."""
     from hsimae_tpu_torch.ops import _build
 
-    max_seq = _build.load_library("fused_block").hsimae_fused_block_max_seq(d)
+    name = library_of(d)
+    max_seq = getattr(_build.load_library(name), f"hsimae_{name}_max_seq")(d)
     assert max_seq >= 36  # HSIMAE's fusion blocks run 36 tokens at every width
     p = random_block(d, swiglu_hidden_dim(d), seed=d)
+    w = tfb.kernel_weights(p, torch.float32)
     x = torch.randn(7, max_seq, d, generator=torch.Generator().manual_seed(d)).cuda()
-    got, ref = tfb.fused_encoder_block(x, p, d // 16), tfb.block_reference(x, p, d // 16)
-    assert ((got - ref).abs() / ref.abs().clamp(min=1.0)).max().item() <= 2e-5
-    before = tfb.LAUNCHES
+    before = counts()
+    got, ref = tfb.fused_encoder_block(x, w, d // 16), tfb.block_reference(x, p, d // 16)
+    assert counts() == tuple(b + a for b, a in zip(before, route(torch.float32, d)))
+    assert scaled_err(got, ref) <= 2e-5
+    before = counts()
     with pytest.raises(ValueError, match="sequence length"):
-        tfb.fused_encoder_block(torch.zeros(2, max_seq + 1, d, device="cuda"), p, d // 16)
-    assert tfb.LAUNCHES == before
+        tfb.fused_encoder_block(torch.zeros(2, max_seq + 1, d, device="cuda"), w, d // 16)
+    assert counts() == before
 
 
 @pytest.mark.cuda
 def test_fused_block_kernel_rejects_unsupported_on_card(card):
     p = random_block(128, 344, seed=0)
-    before = tfb.LAUNCHES
+    pack = tfb.pack_block_tf32(p)
+    before = counts()
     with pytest.raises(ValueError, match="sequence length"):
-        tfb.fused_encoder_block(torch.zeros(2, 65, 128, device="cuda"), p, 8)
+        tfb.fused_encoder_block(torch.zeros(2, 65, 128, device="cuda"), pack, 8)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
-        tfb.fused_encoder_block(torch.zeros(2, 9, 128, device="cuda", dtype=torch.float16), p, 8)
-    assert tfb.LAUNCHES == before
+        tfb.fused_encoder_block(torch.zeros(2, 9, 128, device="cuda", dtype=torch.float16), pack, 8)
+    with pytest.raises(TypeError, match="pack_block_tf32"):  # float32 at D 128 takes only its pack
+        tfb.fused_encoder_block(torch.zeros(2, 9, 128, device="cuda"), p, 8)
+    assert counts() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,s,d,hid", [
+    *[(301, s, 128, 344) for s in (1, 2, 3, 4, 6, 9, 18, 36)],  # every S of the model at D 128
+    (300, 9, 64, 172), (77, 36, 64, 172),  # HSIMAE-S
+    (3001, 9, 128, 344),  # 429 row tiles of 7 sequences: the persistent loop wraps; last tile ragged
+    (50, 9, 128, 344),  # 8 row tiles, fewer than the SMs
+    (7, 64, 64, 172), (3, 64, 128, 344),  # the longest sequence the kernel takes
+    # padded hidden widths whose last [W1 | W3] tile is 8, 16, 32, 40 or 56 columns wide,
+    # and a last W2 atom of 1 or 3 K steps of 8
+    (60, 9, 128, 200), (60, 9, 128, 208), (60, 9, 64, 96), (60, 9, 64, 104), (60, 9, 128, 120),
+])
+def test_tf32x3_kernel_matches_plain_version(card, m, s, d, hid):
+    """The float32 3xTF32 kernel against block_reference (2e-5 scaled)."""
+    p = random_block(d, hid, seed=5 * s + d + hid)
+    x = torch.randn(m, s, d, generator=torch.Generator().manual_seed(m + s)).cuda()
+    before = counts()
+    got = tfb.fused_encoder_block(x, tfb.pack_block_tf32(p), d // 16)
+    ref = tfb.block_reference(x, p, d // 16)
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1, before[1], before[2])
+    assert got.dtype == torch.float32 and got.shape == x.shape
+    assert torch.isfinite(got).all()
+    err = scaled_err(got, ref)
+    assert err <= 2e-5, err
 
 
 def _sms() -> int:
@@ -104,11 +159,11 @@ def test_wgmma_kernel_matches_plain_version(card, m, s, d):
     """The bf16 tensor-core kernel against block_reference (bf16, 5e-2 scaled)."""
     p = random_block(d, swiglu_hidden_dim(d), seed=3 * s + d)
     x = torch.randn(m, s, d, generator=torch.Generator().manual_seed(m + s)).to("cuda", torch.bfloat16)
-    before = (tfb.LAUNCHES, tfb.WGMMA_LAUNCHES)
+    before = counts()
     got = tfb.fused_encoder_block(x, tfb.pack_block(p), d // 16)
     ref = tfb.block_reference(x, p, d // 16)
     torch.cuda.synchronize()
-    assert (tfb.LAUNCHES, tfb.WGMMA_LAUNCHES) == (before[0], before[1] + 1)
+    assert counts() == (before[0], before[1], before[2] + 1)
     assert got.dtype == torch.bfloat16 and got.shape == x.shape
     assert torch.isfinite(got.float()).all()
     err = ((got.float() - ref.float()).abs() / ref.float().abs().clamp(min=1.0)).max().item()
@@ -131,13 +186,13 @@ def test_bf16_on_card_takes_only_packed_weights(card):
     raise before any launch, and S past the kernel's limit is refused."""
     p = random_block(128, 344, seed=0)
     x = torch.zeros(2, 9, 128, device="cuda", dtype=torch.bfloat16)
-    before = (tfb.LAUNCHES, tfb.WGMMA_LAUNCHES)
+    before = counts()
     with pytest.raises(TypeError, match="packed weights"):
         tfb.fused_encoder_block(x, p, 8)
     with pytest.raises(ValueError, match="sequence length"):
         tfb.fused_encoder_block(torch.zeros(2, 65, 128, device="cuda", dtype=torch.bfloat16),
                                 tfb.pack_block(p), 8)
-    assert (tfb.LAUNCHES, tfb.WGMMA_LAUNCHES) == before
+    assert counts() == before
 
 
 @pytest.mark.cuda
@@ -150,16 +205,41 @@ def test_bf16_model_launches_only_the_wgmma_kernel(card):
     cfg = tcfg.preset("HSIMAE-S", compute_dtype=torch.bfloat16)
     model = th.build_hsi_vit(cfg, 7, seed=1, device="cuda")
     x = torch.randn(64, 9, 9, 32, generator=torch.Generator().manual_seed(1)).cuda()
-    before = (tfb.LAUNCHES, tfb.WGMMA_LAUNCHES)
+    before = counts()
     with torch.inference_mode():
         got = model.classify(x)
-        n = tfb.WGMMA_LAUNCHES - before[1]
+        n = tfb.WGMMA_LAUNCHES - before[2]
         orig = th.fused_encoder_block
         th.fused_encoder_block = lambda v, pk, h: tfb.block_reference(v, pk.params, h)
         try:
             ref = model.classify(x)
         finally:
             th.fused_encoder_block = orig
-    assert tfb.LAUNCHES == before[0]
+    assert counts()[:2] == before[:2]
     assert n == 2 * cfg.s_depth + cfg.fusion_depth
     assert ((got - ref).abs() / ref.abs().clamp(min=1.0)).max().item() <= 5e-2
+
+
+@pytest.mark.cuda
+def test_f32_model_launches_only_the_tf32x3_kernel(card):
+    """HSIMAE-B in float32 on the card: every block through the 3xTF32
+    kernel and no other, logits close to the same model with block_reference
+    per block (21 blocks of <= 2e-5 each: 5e-4 scaled)."""
+    from hsimae_tpu_torch import config as tcfg
+    from hsimae_tpu_torch.models import hsimae as th
+
+    cfg = tcfg.preset("HSIMAE-B")
+    model = th.build_hsi_vit(cfg, 7, seed=1, device="cuda")
+    x = torch.randn(64, 9, 9, 32, generator=torch.Generator().manual_seed(1)).cuda()
+    before = counts()
+    with torch.inference_mode():
+        got = model.classify(x)
+        after = counts()
+        orig = th.fused_encoder_block
+        th.fused_encoder_block = lambda v, pk, h: tfb.block_reference(v, pk.params, h)
+        try:
+            ref = model.classify(x)
+        finally:
+            th.fused_encoder_block = orig
+    assert after == (before[0] + 2 * cfg.s_depth + cfg.fusion_depth, before[1], before[2])
+    assert scaled_err(got, ref) <= 5e-4
