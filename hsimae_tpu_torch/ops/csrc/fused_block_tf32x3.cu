@@ -17,48 +17,59 @@
 // Precision. One TF32 product keeps 11 bits of each operand and misses the
 // 2e-5 check by two orders of magnitude. Each product here is three: with
 // a = a_hi + a_lo and w = w_hi + w_lo, every part rounded to TF32 (round to
-// nearest, ties away), it sums a_lo w_hi + a_hi w_lo + a_hi w_hi into one
-// f32 accumulator, small terms first; the dropped a_lo w_lo is ~2^-22
-// relative. wgmma ignores the 13 low bits of a TF32 operand rather than
-// rounding them, so both parts are rounded before: the weights once per
-// model (ops/fused_block.py::pack_block_tf32: a hi and a lo image), the
+// nearest, ties away), it sums a_lo w_hi + a_hi w_lo + a_hi w_hi, small
+// terms first; the dropped a_lo w_lo is ~2^-22 relative. wgmma ignores the
+// 13 low bits of a TF32 operand rather than rounding them, so both parts
+// are rounded before: the weights once per model
+// (ops/fused_block.py::pack_block_tf32: a hi and a lo image), the
 // activations in registers as the A operand is loaded (cvt.rna.tf32.f32).
+// The tensor cores round toward zero as they accumulate, a bias that grows
+// with the number of wgmmas summed into one accumulator (1.9e-5 against the
+// 2e-5 check over W2's 129 when one accumulator took them all); so each K
+// atom's 12 wgmmas sum into a fresh partial, added to the f32 accumulator
+// with round-to-nearest adds.
 //
 // What bounds it on an H100: operations. HSIMAE-B's block (D 128, SwiGLU
 // hidden 344) at batch 4096 does ~59 GFLOP, ~177 GFLOP of TF32 work as three
 // products (0.36 ms at the 495 TFLOP/s TF32 rate), against ~152 MB of
 // activations and a 1.58 MB hi + lo weight pack. The design:
-//   * a CTA owns a row tile of whole sequences, 64 rows (wgmma's M), one
-//     consumer warpgroup. Warp w holds rows 16w .. 16w + 15 in every A
-//     fragment and accumulator, so the x load, the LayerNorm statistics, the
-//     products and the output store are warp-local; only attention reads
-//     across rows;
+//   * a CTA owns a row tile of whole sequences, 64 rows (wgmma's M). Two
+//     consumer warpgroups split every product's output columns, each an
+//     m64n64 (at most) accumulator per thread; warp w of either holds rows
+//     16 (w % 4) .. + 15 in every A fragment and accumulator. A third
+//     warpgroup is the producer: one thread, its registers handed to the
+//     consumers with setmaxnreg;
 //   * A comes from registers: at each K step of 8 a thread loads its four
 //     f32 values (rows g and g + 8, columns t and t + 4) from shared memory
-//     and splits them. LayerNorm is applied on the fly, from the residual
-//     and per-row statistics, so no LN buffer exists: shared memory holds
-//     the residual and q/k/v (~135 KB at D 128); o overwrites q in place, and
-//     the SwiGLU hidden tile reuses the q/k/v space as W2's A;
+//     and splits them, two K steps at a time into alternating register sets.
+//     LayerNorm is applied on the fly, from the residual and per-row
+//     statistics, so no LN buffer exists: shared memory holds the residual
+//     and q/k/v (~135 KB at D 128); o overwrites q in place, and the SwiGLU
+//     hidden tile reuses the q/k/v space as W2's A;
 //   * B (the weights) streams through a ring of five 16 KB slots guarded by
 //     mbarriers (full: bytes landed; empty: every consumer warp's wgmmas done
-//     with the slot), kept in flight by one producer thread with
+//     with the slot), kept in flight by the producer thread with
 //     cp.async.bulk; a K atom of 32 columns takes two slots, its hi and its
-//     lo tile. At 256 threads a thread already has the 255-register
-//     maximum, so the producer warpgroup has none to give (no setmaxnreg);
-//   * W1 and W3 are interleaved per 64 hidden columns, so one wgmma gives a
-//     thread both halves of the gate; the hidden axis is padded with zeros
-//     to a multiple of 8, TF32's K step;
+//     lo tile, and each consumer warpgroup reads its half of the tile's rows;
+//   * W1 and W3 are interleaved per 64 hidden columns, each warpgroup's half
+//     of a tile holding W1 over W3 for the same hidden columns, so one wgmma
+//     gives a thread both halves of the gate; the hidden axis is padded with
+//     zeros to a multiple of 8, TF32's K step;
 //   * epilogues (bias, residual add, the f32 silu gate) run in registers on
 //     the accumulators;
-//   * attention runs in f32 on the CUDA cores, one thread per (row, head): it
-//     is 1-5% of the FLOPs;
+//   * attention runs in f32 on the CUDA cores, one thread per (row, head),
+//     the row's logits held in registers: it is 1-5% of the FLOPs;
 //   * the grid is persistent: one CTA per SM walks the row tiles, and the
 //     producer runs ahead across tile boundaries.
 // What holds it back: the weight stream. Every 64-row tile reads the whole
-// hi + lo pack (1.58 MB at D 128) from L2, ~3.6 GB per launch at batch 4096.
+// hi + lo pack (1.58 MB at D 128) from L2, ~3.7 GB per launch at batch 4096.
 // At S 36 a tile holds one sequence, 36 of its 64 rows. At D 256 the 64-row
 // residual and q/k/v alone (266 KB) exceed the 227 KB of shared memory, so
 // float32 at that width runs on fused_block.cu, by width.
+//
+// Kept out of the hot paths: IEEE float division. It calls a slow-path
+// subroutine, and around such calls the accumulators went to local memory;
+// the divisions here are __fdividef on divisors known to lie in [1, 2^126].
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -71,9 +82,11 @@ constexpr int kAtomK = 32;         // f32 K columns in one 128-byte swizzle atom
 constexpr int kHidTile = 64;       // hidden columns per W1|W3 tile
 constexpr int kStages = 5;         // weight ring depth (two slots per K atom)
 constexpr int kSlotBytes = 16384;  // one ring slot: <= 128 rows x 128 bytes
-constexpr int kRows = 64;          // rows per tile: wgmma's M, one consumer warpgroup
+constexpr int kRows = 64;          // rows per tile: wgmma's M
 constexpr int kMaxSeq = 64;        // longest sequence (a tile holds whole sequences)
-constexpr int kThreads = 256;      // the consumer warpgroup and the producer warpgroup
+constexpr int kConsumers = 2;      // consumer warpgroups, splitting each product's columns
+constexpr int kConsumerThreads = 128 * kConsumers;
+constexpr int kThreads = kConsumerThreads + 128;  // + the producer warpgroup
 constexpr int kMaxSmem = 232448;
 static_assert(kHeadDim == 16, "the attention scale 0.25 assumes head dim 16");
 
@@ -81,6 +94,7 @@ template <int D>
 struct Geom {
   static_assert(D == 64 || D == 128, "widths of this kernel");
   static constexpr int KA = D / kAtomK;       // K atoms of a D-deep product
+  static constexpr int NW = D / kConsumers;   // columns of a D-wide product per warpgroup
   static constexpr int HEADS = D / kHeadDim;
   static constexpr int LD = D + 4;            // row stride (floats) of x, q, k, v: 4 mod 32
   static constexpr int BUF = kRows * LD * 4;  // bytes of one [64, D] buffer
@@ -157,9 +171,9 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
-__device__ __forceinline__ void fence_regs(uint32_t (&a)[4][4]) {
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[2][4]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < 2; ++i) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
   }
@@ -188,12 +202,6 @@ __device__ __forceinline__ void split4(const float4 v, uint32_t (&hi)[4], uint32
     hi[i] = tf32_rna(a[i]);
     lo[i] = tf32_rna(a[i] - __uint_as_float(hi[i]));
   }
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
 }
 
 // m64nNk8 tf32 x tf32 -> f32, A from registers (rows g and g + 8 of the
@@ -267,96 +275,9 @@ struct Wgmma<64> {
   }
 };
 
-template <>
-struct Wgmma<80> {
-  static __device__ __forceinline__ void mma(float (&d)[40], const uint32_t (&a)[4], uint64_t b,
-                                             int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39"
-        "}, {%40, %41, %42, %43}, %44, p, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-  }
-};
 
-template <>
-struct Wgmma<96> {
-  static __device__ __forceinline__ void mma(float (&d)[48], const uint32_t (&a)[4], uint64_t b,
-                                             int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
-        "}, {%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-  }
-};
-
-template <>
-struct Wgmma<112> {
-  static __device__ __forceinline__ void mma(float (&d)[56], const uint32_t (&a)[4], uint64_t b,
-                                             int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n112k8.f32.tf32.tf32 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55"
-        "}, {%56, %57, %58, %59}, %60, p, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-  }
-};
-
-template <>
-struct Wgmma<128> {
-  static __device__ __forceinline__ void mma(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
-                                             int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-        "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-  }
-};
-
-// Ring position of the consumer warpgroup; it and the producer walk the same
-// sequence of slots.
+// Ring position of a consumer warpgroup; both consumer warpgroups and the
+// producer walk the same sequence of slots.
 struct Ring {
   uint32_t slots;  // shared address of slot 0
   uint32_t full;   // shared address of full barrier 0 (8 bytes apart)
@@ -412,84 +333,109 @@ struct NormA {
   }
 };
 
-// acc = A B for the warpgroup's 64 rows, in 3xTF32. B arrives as `katoms` K
-// atoms, each a hi and a lo ring tile; the last atom carries LAST K steps of
-// 8. An atom's A values are loaded and split before its tiles are waited
-// for; its 12 wgmmas (per K step a_lo B_hi, a_hi B_lo, a_hi B_hi) form one
-// group, and its slots are released once the next atom's group is issued and
-// its own has finished. Atoms alternate between two sets of A registers, so
-// a set is rewritten only after the wgmmas that read it have completed.
-template <int N, int LAST, class ASrc>
-__device__ __forceinline__ void product(float (&acc)[N / 2], Ring& ring, const ASrc& a,
-                                        int katoms) {
-  uint32_t hi0[4][4], lo0[4][4], hi1[4][4], lo1[4][4];
-  int prev = -1;  // ring slot of the previous atom's hi tile
-  fence_regs(acc);
-  auto atom = [&](int ka, uint32_t (&hi)[4][4], uint32_t (&lo)[4][4]) {
-    const bool full_atom = ka < katoms - 1 || LAST == 4;
-    if (full_atom) {
+// Loads and splits the thread's A values of STEPS K steps from column k0.
+template <int STEPS, class ASrc>
+__device__ __forceinline__ void split_steps(const ASrc& a, int k0, uint32_t (&hi)[2][4],
+                                            uint32_t (&lo)[2][4]) {
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) split4(a.at(ka * kAtomK + 8 * kk), hi[kk], lo[kk]);
-    } else {
+  for (int s = 0; s < STEPS; ++s) split4(a.at(k0 + 8 * s), hi[s], lo[s]);
+  fence_regs(hi);
+  fence_regs(lo);
+}
+
+// One wgmma group: per K step s, a_lo B_hi, a_hi B_lo, a_hi B_hi (small terms
+// first) into d; B_hi and B_lo at shared addresses b_hi and b_lo (K step 0
+// of the group). The group's first product overwrites d when scale_first is 0.
+template <int N, int STEPS>
+__device__ __forceinline__ void mma_steps(float (&d)[N / 2], const uint32_t (&hi)[2][4],
+                                          const uint32_t (&lo)[2][4], uint32_t b_hi, uint32_t b_lo,
+                                          int scale_first) {
+  wg_fence();
 #pragma unroll
-      for (int kk = 0; kk < LAST; ++kk) split4(a.at(ka * kAtomK + 8 * kk), hi[kk], lo[kk]);
-    }
-    fence_regs(hi);
-    fence_regs(lo);
-    const int slot = ring.stage;
-    const uint32_t b_hi = ring.take();
-    const uint32_t b_lo = ring.take();
-    wg_fence();
-    if (full_atom) {
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        Wgmma<N>::mma(acc, lo[kk], sw128_desc(b_hi + 32 * kk), (ka | kk) != 0);
-        Wgmma<N>::mma(acc, hi[kk], sw128_desc(b_lo + 32 * kk), 1);
-        Wgmma<N>::mma(acc, hi[kk], sw128_desc(b_hi + 32 * kk), 1);
-      }
-    } else {
-#pragma unroll
-      for (int kk = 0; kk < LAST; ++kk) {
-        Wgmma<N>::mma(acc, lo[kk], sw128_desc(b_hi + 32 * kk), (ka | kk) != 0);
-        Wgmma<N>::mma(acc, hi[kk], sw128_desc(b_lo + 32 * kk), 1);
-        Wgmma<N>::mma(acc, hi[kk], sw128_desc(b_hi + 32 * kk), 1);
-      }
-    }
-    wg_commit();
-    if (prev >= 0) {
-      wg_wait<1>();
-      ring.release(prev);
-    }
-    prev = slot;
-  };
-  for (int ka = 0; ka < katoms; ka += 2) {
-    atom(ka, hi0, lo0);
-    if (ka + 1 < katoms) atom(ka + 1, hi1, lo1);
+  for (int s = 0; s < STEPS; ++s) {
+    Wgmma<N>::mma(d, lo[s], sw128_desc(b_hi + 32 * s), s == 0 ? scale_first : 1);
+    Wgmma<N>::mma(d, hi[s], sw128_desc(b_lo + 32 * s), 1);
+    Wgmma<N>::mma(d, hi[s], sw128_desc(b_hi + 32 * s), 1);
+  }
+  wg_commit();
+}
+
+// One K atom (STEPS K steps of 8) of a product, for this warpgroup's rows of
+// the B tiles from byte b_off: its hi and lo tiles waited for, two wgmma
+// groups into a fresh partial (K steps 0-1 from the A registers x, 2-3 from
+// y, the second half's A split while the first runs), then the partial added
+// to acc once both are done, and the atom's slots released.
+template <int N, int STEPS, class ASrc>
+__device__ __forceinline__ void product_atom(float (&acc)[N / 2], float (&part)[N / 2], Ring& ring,
+                                             const ASrc& a, int ka, uint32_t b_off,
+                                             uint32_t (&hx)[2][4], uint32_t (&lx)[2][4],
+                                             uint32_t (&hy)[2][4], uint32_t (&ly)[2][4]) {
+  constexpr int H1 = STEPS < 2 ? STEPS : 2, H2 = STEPS - H1;
+  const int k0 = ka * kAtomK;
+  split_steps<H1>(a, k0, hx, lx);
+  const int slot = ring.stage;
+  const uint32_t b_hi = ring.take() + b_off;
+  const uint32_t b_lo = ring.take() + b_off;
+  fence_regs(part);
+  mma_steps<N, H1>(part, hx, lx, b_hi, b_lo, 0);
+  if constexpr (H2 > 0) {
+    split_steps<H2>(a, k0 + 16, hy, ly);
+    mma_steps<N, H2>(part, hy, ly, b_hi + 64, b_lo + 64, 1);
   }
   wg_wait<0>();
-  fence_regs(acc);
-  ring.release(prev);
+  fence_regs(part);
+  ring.release(slot);
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] += part[i];
+}
+
+// acc = A B for the warpgroup's 64 rows and N output columns, in 3xTF32. B
+// arrives as `katoms` K atoms, each a hi and a lo ring tile of which this
+// warpgroup reads the rows from byte b_off; the last atom carries LAST K
+// steps of 8.
+template <int N, int LAST, class ASrc>
+__device__ __forceinline__ void product(float (&acc)[N / 2], Ring& ring, const ASrc& a, int katoms,
+                                        uint32_t b_off) {
+  float part[N / 2];
+  uint32_t hx[2][4], lx[2][4], hy[2][4], ly[2][4];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+#pragma unroll 1
+  for (int ka = 0; ka < katoms - 1; ++ka)
+    product_atom<N, 4>(acc, part, ring, a, ka, b_off, hx, lx, hy, ly);
+  product_atom<N, LAST>(acc, part, ring, a, katoms - 1, b_off, hx, lx, hy, ly);
+}
+
+// Takes and releases `katoms` atoms of the ring without reading them: a
+// warpgroup with no columns in a tile.
+__device__ __forceinline__ void skip_atoms(Ring& ring, int katoms) {
+  for (int ka = 0; ka < katoms; ++ka) {
+    const int slot = ring.stage;
+    ring.take();
+    ring.take();
+    ring.release(slot);
+  }
 }
 
 // Accumulator coordinates of this thread: rows er and er + 8 of the 64,
-// columns 8 j + ec and 8 j + ec + 1.
+// columns 8 j + ec and 8 j + ec + 1 of the warpgroup's N.
 struct AccPos {
   int er, ec;
   __device__ __forceinline__ AccPos() {
     const int lane = threadIdx.x & 31;
-    er = 16 * (threadIdx.x >> 5) + (lane >> 2);
+    er = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
     ec = 2 * (lane & 3);
   }
 };
 
-// dst[row, col] = acc + bias[col], dst row-major with stride ld.
+// dst[row, n0 + col] = acc + bias[n0 + col], dst row-major with stride ld.
 template <int N>
-__device__ __forceinline__ void store_biased(const float (&acc)[N / 2], float* dst, int ld,
+__device__ __forceinline__ void store_biased(const float (&acc)[N / 2], float* dst, int ld, int n0,
                                              const float* __restrict__ bias) {
   const AccPos p;
 #pragma unroll
   for (int j = 0; j < N / 8; ++j) {
-    const int col = 8 * j + p.ec;
+    const int col = n0 + 8 * j + p.ec;
     const float2 b = __ldg(reinterpret_cast<const float2*>(bias + col));
     *reinterpret_cast<float2*>(dst + p.er * ld + col) = make_float2(acc[4 * j] + b.x, acc[4 * j + 1] + b.y);
     *reinterpret_cast<float2*>(dst + (p.er + 8) * ld + col) =
@@ -497,14 +443,14 @@ __device__ __forceinline__ void store_biased(const float (&acc)[N / 2], float* d
   }
 }
 
-// xs[row, col] = xs + (acc + bias[col]): the residual add.
+// xs[row, n0 + col] = xs + (acc + bias): the residual add.
 template <int N>
-__device__ __forceinline__ void add_residual(const float (&acc)[N / 2], float* xs, int ld,
+__device__ __forceinline__ void add_residual(const float (&acc)[N / 2], float* xs, int ld, int n0,
                                              const float* __restrict__ bias) {
   const AccPos p;
 #pragma unroll
   for (int j = 0; j < N / 8; ++j) {
-    const int col = 8 * j + p.ec;
+    const int col = n0 + 8 * j + p.ec;
     const float2 b = __ldg(reinterpret_cast<const float2*>(bias + col));
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
@@ -515,22 +461,26 @@ __device__ __forceinline__ void add_residual(const float (&acc)[N / 2], float* x
   }
 }
 
-__device__ __forceinline__ float silu_gate(float h1, float h3) { return h1 / (1.f + expf(-h1)) * h3; }
+// silu(h1) * h3, the division as __fdividef (2 ulp; the divisor 1 + exp(-h1)
+// lies in [1, 2^126] wherever silu is not already 0).
+__device__ __forceinline__ float silu_gate(float h1, float h3) {
+  return __fdividef(h1, 1.f + expf(-h1)) * h3;
+}
 
-// One tile of N / 2 hidden columns from h0: [W1 | W3] interleaved in one
-// product, then h = silu(h1 + b1) * (h3 + b3) into the hidden tile (row-major,
-// stride ldh), the A of W2.
+// This warpgroup's part of one [W1 | W3] tile: T = N / 2 hidden columns
+// from hc, its W1 rows over its W3 rows in one product, then h = silu(h1 +
+// b1) * (h3 + b3) into the hidden tile (row-major, stride ldh), the A of W2.
 template <int D, int N>
-__device__ __forceinline__ void hidden_tile(Ring& ring, const NormA& a, float* hs, int ldh,
-                                            const float* __restrict__ b1,
-                                            const float* __restrict__ b3, int h0) {
+__device__ __forceinline__ void hidden_part(Ring& ring, const NormA& a, uint32_t b_off, float* hs,
+                                            int ldh, const float* __restrict__ b1,
+                                            const float* __restrict__ b3, int hc) {
   constexpr int T = N / 2;
   float acc[N / 2];
-  product<N, 4>(acc, ring, a, Geom<D>::KA);
+  product<N, 4>(acc, ring, a, Geom<D>::KA, b_off);
   const AccPos p;
 #pragma unroll
   for (int j = 0; j < T / 8; ++j) {
-    const int col = h0 + 8 * j + p.ec;
+    const int col = hc + 8 * j + p.ec;
     const float2 c1 = __ldg(reinterpret_cast<const float2*>(b1 + col));
     const float2 c3 = __ldg(reinterpret_cast<const float2*>(b3 + col));
 #pragma unroll
@@ -543,15 +493,16 @@ __device__ __forceinline__ void hidden_tile(Ring& ring, const NormA& a, float* h
   }
 }
 
-// Mean and 1 / sqrt(var + 1e-5) of this thread's A rows r0 = 16 w + g and
-// r0 + 8, from the warp's 16 residual rows: each row reduced by the whole
-// warp (D / 32 columns a lane), the 16 rows in flight together.
+// Mean and 1 / sqrt(var + 1e-5) of this thread's A rows r0 = 16 (w % 4) + g
+// and r0 + 8, from its warp's 16 residual rows: each row reduced by the
+// whole warp (D / 32 columns a lane), the 16 rows in flight together. Both
+// consumer warpgroups compute them, each for its own threads.
 template <int D>
 __device__ __forceinline__ void row_stats(const float* xs, float& mu0, float& inv0, float& mu8,
                                           float& inv8) {
   using G = Geom<D>;
   constexpr int E = D / 32;  // columns per lane: 2 or 4
-  const int lane = threadIdx.x & 31, g = lane >> 2, row0 = 16 * (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31, g = lane >> 2, row0 = 16 * ((threadIdx.x >> 5) & 3);
   float v[16][E], mu[16], sq[16];
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
@@ -592,28 +543,37 @@ __device__ __forceinline__ void row_stats(const float* xs, float& mu0, float& in
 }
 
 __device__ __forceinline__ float dot16(const float (&q)[kHeadDim], const float* k) {
-  float s = 0.f;
+  float s0 = 0.f, s1 = 0.f;  // two chains
 #pragma unroll
-  for (int d = 0; d < kHeadDim; d += 4) {
+  for (int d = 0; d < kHeadDim; d += 8) {
     const float4 u = *reinterpret_cast<const float4*>(k + d);
-    s = fmaf(q[d], u.x, s);
-    s = fmaf(q[d + 1], u.y, s);
-    s = fmaf(q[d + 2], u.z, s);
-    s = fmaf(q[d + 3], u.w, s);
+    const float4 w = *reinterpret_cast<const float4*>(k + d + 4);
+    s0 = fmaf(q[d], u.x, s0);
+    s1 = fmaf(q[d + 4], w.x, s1);
+    s0 = fmaf(q[d + 1], u.y, s0);
+    s1 = fmaf(q[d + 5], w.y, s1);
+    s0 = fmaf(q[d + 2], u.z, s0);
+    s1 = fmaf(q[d + 6], w.z, s1);
+    s0 = fmaf(q[d + 3], u.w, s0);
+    s1 = fmaf(q[d + 7], w.w, s1);
   }
-  return s;
+  return s0 + s1;
 }
 
-// o = softmax(q k^T * 0.25) v per (row, head), one thread per pair, in f32:
-// the row's logits twice (the max, then exp, the sum and the weighted sum of
-// v), o divided by the sum. o overwrites q in place: only this thread reads
-// q[row, head]. Rows from nrows on (empty sequences) are skipped.
-template <int D>
+// o = softmax(q k^T * 0.25) v per (row, head), one consumer thread per pair,
+// in f32, for sequences of S <= KMAX: the row's S logits computed once into
+// registers (independent chains), their max, exp and sum, then the weighted
+// sum of v times the sum's reciprocal. Rows are the fastest index, so the
+// eight threads of a 16-byte access phase read eight rows (stride 4 mod 32
+// words, or one broadcast key row), free of bank conflicts. o overwrites q
+// in place: only this thread reads q[row, head]. Rows from nrows on (empty
+// sequences) are skipped.
+template <int D, int KMAX>
 __device__ __forceinline__ void attention(float* qs, const float* ks, const float* vs, int S,
                                           int nrows) {
   using G = Geom<D>;
-  for (int item = threadIdx.x; item < nrows * G::HEADS; item += 128) {
-    const int r = item / G::HEADS, c = (item % G::HEADS) * kHeadDim;
+  for (int item = threadIdx.x; item < nrows * G::HEADS; item += kConsumerThreads) {
+    const int r = item % nrows, c = (item / nrows) * kHeadDim;
     const int s0 = r - r % S;
     float* qp = qs + r * G::LD + c;
     float q[kHeadDim];
@@ -627,27 +587,38 @@ __device__ __forceinline__ void attention(float* qs, const float* ks, const floa
     }
     const float* kp = ks + s0 * G::LD + c;
     const float* vp = vs + s0 * G::LD + c;
+    float l[KMAX];
     float mx = -INFINITY;
-    for (int j = 0; j < S; ++j) mx = fmaxf(mx, dot16(q, kp + j * G::LD) * 0.25f);
+#pragma unroll
+    for (int j = 0; j < KMAX; ++j) {
+      if (j < S) {
+        l[j] = dot16(q, kp + j * G::LD) * 0.25f;
+        mx = fmaxf(mx, l[j]);
+      }
+    }
     float sum = 0.f, o[kHeadDim];
 #pragma unroll
     for (int d = 0; d < kHeadDim; ++d) o[d] = 0.f;
-    for (int j = 0; j < S; ++j) {
-      const float e = expf(dot16(q, kp + j * G::LD) * 0.25f - mx);
-      sum += e;
 #pragma unroll
-      for (int d = 0; d < kHeadDim; d += 4) {
-        const float4 u = *reinterpret_cast<const float4*>(vp + j * G::LD + d);
-        o[d] = fmaf(e, u.x, o[d]);
-        o[d + 1] = fmaf(e, u.y, o[d + 1]);
-        o[d + 2] = fmaf(e, u.z, o[d + 2]);
-        o[d + 3] = fmaf(e, u.w, o[d + 3]);
+    for (int j = 0; j < KMAX; ++j) {
+      if (j < S) {
+        const float e = expf(l[j] - mx);
+        sum += e;
+#pragma unroll
+        for (int d = 0; d < kHeadDim; d += 4) {
+          const float4 u = *reinterpret_cast<const float4*>(vp + j * G::LD + d);
+          o[d] = fmaf(e, u.x, o[d]);
+          o[d + 1] = fmaf(e, u.y, o[d + 1]);
+          o[d + 2] = fmaf(e, u.z, o[d + 2]);
+          o[d + 3] = fmaf(e, u.w, o[d + 3]);
+        }
       }
     }
+    const float inv = __fdividef(1.f, sum);  // sum in [1, 64]
 #pragma unroll
     for (int d = 0; d < kHeadDim; d += 4)
       *reinterpret_cast<float4*>(qp + d) =
-          make_float4(o[d] / sum, o[d + 1] / sum, o[d + 2] / sum, o[d + 3] / sum);
+          make_float4(o[d] * inv, o[d + 1] * inv, o[d + 2] * inv, o[d + 3] * inv);
   }
 }
 
@@ -680,7 +651,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(full0 + 8 * s, 1);
-      mbar_init(empty0 + 8 * s, 4);  // one arrival per consumer warp
+      mbar_init(empty0 + 8 * s, kConsumerThreads / 32);  // one arrival per consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -688,10 +659,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int R = nseq * S;  // rows of whole sequences per tile
   const int hka = (Hp + kAtomK - 1) / kAtomK;
 
-  if (warp >= 4) {
+  if (warp >= kConsumerThreads / 32) {
     // ---- producer warpgroup: one thread streams the hi and lo tiles of the
-    // pack, tile after tile, into the ring ----
-    if (warp == 4 && lane == 0) {
+    // pack, tile after tile, into the ring; the warpgroup hands its
+    // registers to the consumers ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp == kConsumerThreads / 32 && lane == 0) {
       const uint32_t slots = smem_u32(smem);
       int stage = 0;
       uint32_t phase = 0;
@@ -722,10 +695,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     return;
   }
 
-  // ---- the consumer warpgroup: warp w owns rows [16 w, 16 w + 16) ----
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = 16 * warp + g;  // this thread's A and accumulator rows: r0, r0 + 8
-  constexpr int bar_wg = 1;
+  // ---- consumers: warpgroup wg takes output columns [wg NW, wg NW + NW) of
+  // each D-wide product and its half of each [W1 | W3] tile; warp w holds
+  // rows [16 (w % 4), + 16) ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * (warp & 3) + g;  // this thread's A and accumulator rows: r0, r0 + 8
+  constexpr int bar_all = 1;
   float* xs = reinterpret_cast<float*>(smem + G::X_OFF);
   float* qs = reinterpret_cast<float*>(smem + G::QKV_OFF);
   float* ks = qs + kRows * G::LD;
@@ -735,6 +711,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const float* b1 = vecs + V_NUM_D * D;
   const float* b3 = b1 + Hp;
   const RowsA xrows{xs + r0 * G::LD + t, xs + (r0 + 8) * G::LD + t};
+  const int n0 = wg * G::NW;                    // this warpgroup's columns of a D-wide product
+  const uint32_t b_off = wg * G::NW * 128;      // and its rows of the product's B tiles
   Ring ring{smem_u32(smem), full0, empty0, 0, 0};
   constexpr int C4 = D / 4;  // float4 per row
 #ifdef HSIMAE_PHASE_CLOCKS
@@ -743,16 +721,16 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     const long long row0 = (long long)tile * R;
     const int nvalid = (int)min((long long)R, total_rows - row0);
-    bar_sync(bar_wg, 128);  // q/k/v and the hidden tile are free of the previous tile
+    bar_sync(bar_all, kConsumerThreads);  // q/k/v and the hidden tile are free of the previous tile
     PHASE_MARK(0)
 #pragma unroll
-    for (int i = lane; i < 16 * C4; i += 32) {  // this warp's 16 x rows, zero past the valid
-      const int r = 16 * warp + i / C4, c = (i % C4) * 4;
+    for (int i = threadIdx.x; i < kRows * C4; i += kConsumerThreads) {  // x rows, zero past the valid
+      const int r = i / C4, c = (i % C4) * 4;
       *reinterpret_cast<float4*>(xs + r * G::LD + c) =
           r < nvalid ? __ldg(reinterpret_cast<const float4*>(x + (row0 + r) * D + c))
                      : make_float4(0.f, 0.f, 0.f, 0.f);
     }
-    __syncwarp();
+    bar_sync(bar_all, kConsumerThreads);
     float mu0, inv0, mu8, inv8;
     row_stats<D>(xs, mu0, inv0, mu8, inv8);
     PHASE_MARK(1)
@@ -762,62 +740,70 @@ __global__ void __launch_bounds__(kThreads, 1)
       const NormA y{xrows, mu0, inv0, mu8, inv8, vecs + V_LN1_S * D + t, vecs + V_LN1_B * D + t};
 #pragma unroll 1
       for (int m = 0; m < 3; ++m) {
-        float acc[D / 2];
-        product<D, 4>(acc, ring, y, G::KA);
-        store_biased<D>(acc, qs + m * kRows * G::LD, G::LD, vecs + (V_BQ + m) * D);
+        float acc[G::NW / 2];
+        product<G::NW, 4>(acc, ring, y, G::KA, b_off);
+        store_biased<G::NW>(acc, qs + m * kRows * G::LD, G::LD, n0, vecs + (V_BQ + m) * D);
       }
     }
-    bar_sync(bar_wg, 128);  // q, k, v of every row are in place
+    bar_sync(bar_all, kConsumerThreads);  // q, k, v of every row and column are in place
     PHASE_MARK(2)
-    attention<D>(qs, ks, vs, S, nvalid);
-    bar_sync(bar_wg, 128);  // o of every row is in place
+    if (S <= 4) attention<D, 4>(qs, ks, vs, S, nvalid);
+    else if (S <= 9) attention<D, 9>(qs, ks, vs, S, nvalid);
+    else if (S <= 18) attention<D, 18>(qs, ks, vs, S, nvalid);
+    else if (S <= 36) attention<D, 36>(qs, ks, vs, S, nvalid);
+    else attention<D, kMaxSeq>(qs, ks, vs, S, nvalid);
+    bar_sync(bar_all, kConsumerThreads);  // o of every row is in place
     PHASE_MARK(3)
     {
       const RowsA o{qs + r0 * G::LD + t, qs + (r0 + 8) * G::LD + t};
-      float acc[D / 2];
-      product<D, 4>(acc, ring, o, G::KA);
-      add_residual<D>(acc, xs, G::LD, vecs + V_BO * D);
+      float acc[G::NW / 2];
+      product<G::NW, 4>(acc, ring, o, G::KA, b_off);
+      add_residual<G::NW>(acc, xs, G::LD, n0, vecs + V_BO * D);
     }
-    __syncwarp();
+    // every residual column is updated, and every warp has read its o: the
+    // hidden tile may overwrite q/k/v
+    bar_sync(bar_all, kConsumerThreads);
     PHASE_MARK(4)
 
     // ---- SwiGLU half ----
     row_stats<D>(xs, mu0, inv0, mu8, inv8);
-    bar_sync(bar_wg, 128);  // every warp has read its o: the hidden tile may overwrite q/k/v
     PHASE_MARK(5)
     {
       const NormA y2{xrows, mu0, inv0, mu8, inv8, vecs + V_LN2_S * D + t, vecs + V_LN2_B * D + t};
       for (int h0 = 0; h0 < Hp; h0 += kHidTile) {
-        switch (min(kHidTile, Hp - h0)) {
-          case 64: hidden_tile<D, 128>(ring, y2, hs, ldh, b1, b3, h0); break;
-          case 56: hidden_tile<D, 112>(ring, y2, hs, ldh, b1, b3, h0); break;
-          case 48: hidden_tile<D, 96>(ring, y2, hs, ldh, b1, b3, h0); break;
-          case 40: hidden_tile<D, 80>(ring, y2, hs, ldh, b1, b3, h0); break;
-          case 32: hidden_tile<D, 64>(ring, y2, hs, ldh, b1, b3, h0); break;
-          case 24: hidden_tile<D, 48>(ring, y2, hs, ldh, b1, b3, h0); break;
-          case 16: hidden_tile<D, 32>(ring, y2, hs, ldh, b1, b3, h0); break;
-          default: hidden_tile<D, 16>(ring, y2, hs, ldh, b1, b3, h0); break;
+        // the tile's tw hidden columns: the first warpgroup takes tw0 (a
+        // multiple of 8, at least half), the second the rest
+        const int tw = min(kHidTile, Hp - h0), tw0 = (tw / 2 + 7) / 8 * 8;
+        const int mine = wg == 0 ? tw0 : tw - tw0;
+        const int hc = h0 + (wg == 0 ? 0 : tw0);
+        const uint32_t off = wg == 0 ? 0 : 2 * tw0 * 128;
+        switch (mine) {
+          case 32: hidden_part<D, 64>(ring, y2, off, hs, ldh, b1, b3, hc); break;
+          case 24: hidden_part<D, 48>(ring, y2, off, hs, ldh, b1, b3, hc); break;
+          case 16: hidden_part<D, 32>(ring, y2, off, hs, ldh, b1, b3, hc); break;
+          case 8: hidden_part<D, 16>(ring, y2, off, hs, ldh, b1, b3, hc); break;
+          default: skip_atoms(ring, G::KA); break;
         }
       }
     }
-    __syncwarp();  // the warp's hidden rows are in place
+    bar_sync(bar_all, kConsumerThreads);  // every hidden column is in place
     PHASE_MARK(6)
     {
       const RowsA h{hs + r0 * ldh + t, hs + (r0 + 8) * ldh + t};
-      float acc[D / 2];
+      float acc[G::NW / 2];
       switch ((Hp - (hka - 1) * kAtomK) / 8) {  // K steps in the last atom
-        case 1: product<D, 1>(acc, ring, h, hka); break;
-        case 2: product<D, 2>(acc, ring, h, hka); break;
-        case 3: product<D, 3>(acc, ring, h, hka); break;
-        default: product<D, 4>(acc, ring, h, hka); break;
+        case 1: product<G::NW, 1>(acc, ring, h, hka, b_off); break;
+        case 2: product<G::NW, 2>(acc, ring, h, hka, b_off); break;
+        case 3: product<G::NW, 3>(acc, ring, h, hka, b_off); break;
+        default: product<G::NW, 4>(acc, ring, h, hka, b_off); break;
       }
-      add_residual<D>(acc, xs, G::LD, vecs + V_B2 * D);
+      add_residual<G::NW>(acc, xs, G::LD, n0, vecs + V_B2 * D);
     }
-    __syncwarp();
+    bar_sync(bar_all, kConsumerThreads);  // every output column is in place
     PHASE_MARK(7)
 #pragma unroll
-    for (int i = lane; i < 16 * C4; i += 32) {
-      const int r = 16 * warp + i / C4, c = (i % C4) * 4;
+    for (int i = threadIdx.x; i < kRows * C4; i += kConsumerThreads) {
+      const int r = i / C4, c = (i % C4) * 4;
       if (r < nvalid)
         *reinterpret_cast<float4*>(out + (row0 + r) * D + c) =
             *reinterpret_cast<const float4*>(xs + r * G::LD + c);

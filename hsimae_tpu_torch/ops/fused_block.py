@@ -60,7 +60,10 @@ _ATOM_K = 64
 _HID_TILE = 64  # hidden columns per interleaved [W1 | W3] tile
 
 # Weight pack of the 3xTF32 kernel: the same tile order with atoms of 32
-# float32 K columns (128 bytes), the hidden axis padded to TF32's K step.
+# float32 K columns (128 bytes), the hidden axis padded to TF32's K step. Its
+# two consumer warpgroups split each [W1 | W3] tile's tw hidden columns, the
+# first taking tw0 = ceil8(tw / 2): the tile holds W1 over W3 for those,
+# then W1 over W3 for the rest.
 TF32_HIDDEN_MULTIPLE = 8
 _TF32_ATOM_K = 32
 
@@ -162,10 +165,12 @@ def _atoms(w: torch.Tensor, rows: int, atom_k: int) -> torch.Tensor:
     return swizzle128(tiles).reshape(-1)
 
 
-def _image(p: BlockParams, dtype: torch.dtype, hp: int, atom_k: int) -> torch.Tensor:
+def _image(p: BlockParams, dtype: torch.dtype, hp: int, atom_k: int,
+           split_hidden: bool = False) -> torch.Tensor:
     """Every matrix cast to ``dtype``, transposed to ``[out, in]``, cut into
     tiles in the kernels' order (above) and swizzled, the hidden axis
-    zero-padded to ``hp``."""
+    zero-padded to ``hp``; ``split_hidden`` orders each [W1 | W3] tile's
+    rows for the 3xTF32 kernel's two warpgroups (above)."""
     d, hid = p.w1.shape
     pad = hp - hid
     w1t = F.pad(p.w1.t().to(dtype), (0, 0, 0, pad))  # [hp, d]
@@ -174,8 +179,10 @@ def _image(p: BlockParams, dtype: torch.dtype, hp: int, atom_k: int) -> torch.Te
     nt = min(d, 128)
     parts = [_atoms(w.t().to(dtype), nt, atom_k) for w in (p.wq, p.wk, p.wv, p.wo)]
     for h0 in range(0, hp, _HID_TILE):
-        sl = slice(h0, min(h0 + _HID_TILE, hp))
-        parts.append(_atoms(torch.cat([w1t[sl], w3t[sl]]), 2 * (sl.stop - h0), atom_k))
+        h1 = min(h0 + _HID_TILE, hp)
+        cuts = (h0, h0 + (h1 - h0 + 15) // 16 * 8, h1) if split_hidden else (h0, h1)
+        rows = [w[a:b] for a, b in zip(cuts, cuts[1:]) for w in (w1t, w3t)]
+        parts.append(_atoms(torch.cat(rows), 2 * (h1 - h0), atom_k))
     parts.append(_atoms(w2t, nt, atom_k))
     return torch.cat(parts).contiguous()
 
@@ -200,13 +207,14 @@ def pack_block(p: BlockParams) -> BlockPack:
 @torch.no_grad()
 def pack_block_tf32(p: BlockParams) -> Tf32Pack:
     """Pack one block for the 3xTF32 kernel, on the weights' device: the
-    float32 image in the bf16 pack's tile order, with atoms of 32 K columns
-    and the hidden axis zero-padded to a multiple of 8, split into
+    float32 image in the bf16 pack's tile order, with atoms of 32 K columns,
+    each [W1 | W3] tile's rows in two warpgroup halves (above) and the
+    hidden axis zero-padded to a multiple of 8, split into
     ``hi = rna_tf32(w)`` and ``lo = rna_tf32(w - hi)`` (wgmma reads TF32
     operands without rounding their low bits, so both are rounded here;
     ``hi + lo`` is within 2^-21 of w, relative). Done once per model."""
     hp = padded_hidden(p.w1.shape[-1], TF32_HIDDEN_MULTIPLE)
-    image = _image(p, torch.float32, hp, _TF32_ATOM_K)
+    image = _image(p, torch.float32, hp, _TF32_ATOM_K, split_hidden=True)
     hi = rna_tf32(image)
     return Tf32Pack(p, hi, rna_tf32(image - hi), _vecs(p, hp))
 

@@ -11,7 +11,8 @@ HSIMAE-B main-path shapes of batch 4096 (the same seeded inputs in every
 checkout), it prints one JSON line per case with the kernel's time by
 
 - ``single_call_ms``: CUDA events around each single call, the median of
-  10 (the wrapper's host time falls inside the events), and
+  40 (the wrapper's host time falls inside the events and varies by several
+  percent from call to call), and
 - ``back_to_back_ms``: CUDA events around 10 back-to-back calls divided by
   10, the median of 3 rounds (launch gaps hidden while the host stays ahead),
 
@@ -35,7 +36,7 @@ D, HEADS, HIDDEN = 128, 8, 344
 SHAPES = {"blocks_1": (16384, 9, D), "blocks_2": (36864, 4, D), "fusion": (4096, 36, D)}
 
 
-def single_call_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+def single_call_ms(fn, iters: int = 40, warmup: int = 2) -> float:
     import torch
 
     for _ in range(warmup):

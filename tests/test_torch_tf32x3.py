@@ -123,15 +123,21 @@ def test_rna_tf32_rounds_to_nearest_ties_away():
 
 def pack_layout(d: int, hidden_pad: int) -> list:
     """The 3xTF32 kernel's tile order, written out independently of the
-    pack: ``(matrix, n0, rows, k0)``. A tile holds output rows ``n0 : n0 +
-    rows`` of the matrix in ``[out, in]`` layout and its input columns ``k0
-    : k0 + 32`` (zero past the end); ``w13`` tiles stack ``rows // 2`` hidden
-    rows of W1 over the same rows of W3."""
-    tiles = [(name, 0, d, k0) for name in ("wq", "wk", "wv", "wo") for k0 in range(0, d, ATOM_K)]
+    pack: ``(segments, k0)``, where a tile's rows are the listed segments
+    ``(matrix, row0, nrows)`` of the matrices in ``[out, in]`` layout, one
+    after the other, and its columns are the input columns ``k0 : k0 + 32``
+    (zero past the end). A [W1 | W3] tile of tw hidden rows from h0 is cut
+    for the kernel's two warpgroups: W1 over W3 for the first tw0 = ceil8(tw
+    / 2) rows, then W1 over W3 for the rest."""
+    tiles = [([(name, 0, d)], k0) for name in ("wq", "wk", "wv", "wo")
+             for k0 in range(0, d, ATOM_K)]
     for h0 in range(0, hidden_pad, HID_TILE):
-        rows = 2 * min(HID_TILE, hidden_pad - h0)
-        tiles += [("w13", h0, rows, k0) for k0 in range(0, d, ATOM_K)]
-    tiles += [("w2", 0, d, k0) for k0 in range(0, hidden_pad, ATOM_K)]
+        tw = min(HID_TILE, hidden_pad - h0)
+        tw0 = -(-(tw // 2) // 8) * 8
+        segs = [("w1", h0, tw0), ("w3", h0, tw0), ("w1", h0 + tw0, tw - tw0),
+                ("w3", h0 + tw0, tw - tw0)]
+        tiles += [([sg for sg in segs if sg[2]], k0) for k0 in range(0, d, ATOM_K)]
+    tiles += [([("w2", 0, d)], k0) for k0 in range(0, hidden_pad, ATOM_K)]
     return tiles
 
 
@@ -142,14 +148,16 @@ def unpack_image(image: torch.Tensor, d: int, hp: int) -> dict:
            "wo": torch.zeros(d, d), "w1": torch.zeros(hp, d), "w3": torch.zeros(hp, d),
            "w2": torch.zeros(d, hp)}  # [out, in] while filling
     off = 0
-    for name, n0, rows, k0 in pack_layout(d, hp):
+    for segs, k0 in pack_layout(d, hp):
+        rows = sum(n for _, _, n in segs)
         tile = tfb.swizzle128(image[off:off + rows * ATOM_K].reshape(rows, ATOM_K))
         off += rows * ATOM_K
-        parts = ((("w1", tile[:rows // 2]), ("w3", tile[rows // 2:])) if name == "w13"
-                 else ((name, tile),))
-        for key, part in parts:
+        at = 0
+        for key, row0, n in segs:
+            part = tile[at:at + n]
+            at += n
             kk = min(ATOM_K, out[key].shape[1] - k0)
-            out[key][n0:n0 + part.shape[0], k0:k0 + kk] = part[:, :kk]
+            out[key][row0:row0 + n, k0:k0 + kk] = part[:, :kk]
             assert not part[:, kk:].any(), "K padding of a tile must be zero"
     assert off == image.numel(), "pack image longer than its layout"
     return {k: v.t().contiguous() for k, v in out.items()}
@@ -163,7 +171,8 @@ def test_tf32_pack_is_the_split_weights_in_the_kernels_order(d, hid):
     hp = tfb.padded_hidden(hid, tfb.TF32_HIDDEN_MULTIPLE)
     assert hp % 8 == 0 and 0 <= hp - hid < 8
     assert pack.hi.dtype == pack.lo.dtype == torch.float32
-    assert pack.hi.numel() == pack.lo.numel() == sum(r * ATOM_K for _, _, r, _ in pack_layout(d, hp))
+    assert pack.hi.numel() == pack.lo.numel() == sum(
+        n * ATOM_K for segs, _ in pack_layout(d, hp) for _, _, n in segs)
     for image in (pack.hi, pack.lo):  # TF32 values: the 13 low mantissa bits are zero
         assert not (image.view(torch.int32) & 0x1FFF).any()
     hi, lo = unpack_image(pack.hi, d, hp), unpack_image(pack.lo, d, hp)
