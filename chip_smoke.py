@@ -37,9 +37,11 @@ from __future__ import annotations
 
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 # Published dense peaks of an H100 SXM (NVIDIA data sheet) at its 700 W limit.
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # f32 without tensor cores
@@ -75,6 +77,32 @@ SCENE_ARGV = ["--synthetic", "--synthetic-size", "145", "--synthetic-bands", "20
               "--batch-size", str(BATCH), "--device", "cuda"]
 MAIN_ARGV = {"float32": SCENE_ARGV + ["--no-bf16"], "bfloat16": SCENE_ARGV}
 MIN_AGREEMENT = 0.999
+
+# phase 8: float32 pretrain steps, card against CPU
+STEP_BATCH, STEP_TOTAL = 64, 20
+STEP_GRIDS = [(2, 9), (3, 6), (2, 9)]  # kept (len_t, len_l) per step, drawn and injected
+STEP_LOSS_RTOL, STEP_PARAM_TOL = 1e-4, 1e-4  # param: |card - cpu| <= tol * max(1, |cpu|)
+# phase 9: pretraining through the CLI (bench.py's setting: HSIMAE-B, bf16, batch 2048);
+# 24 synthetic scenes of 72-144 px, all cut densely, ~29 k cuts, ~15 steps an epoch
+PRETRAIN_BATCH = 2048
+PRETRAIN_ARGV = ["--synthetic", "--synthetic-scenes", "24", "--synthetic-size", "145",
+                 "--synthetic-bands", "200", "--coarse-from", "24", "--model", "HSIMAE-B",
+                 "--batch-size", str(PRETRAIN_BATCH), "--mask-ratio", "0.5", "--epochs", "2",
+                 "--seed", "0", "--device", "cuda"]
+RESUME_RTOL = 1e-3
+# phase 10: the kernel at the masked encoder's shapes (mask ratio 0.5 on T 4 x L 9)
+MASKED_GRIDS = [(2, 9), (3, 6)]
+MASKED_SHAPES = {  # name: ([M, S, D], launches per call, grids)
+    "blocks_1 (2,9)": ((PRETRAIN_BATCH * 2, 9, D_B), 9, [[2, 9]]),
+    "blocks_2 (2,9)": ((PRETRAIN_BATCH * 9, 2, D_B), 9, [[2, 9]]),
+    "blocks_1 (3,6)": ((PRETRAIN_BATCH * 3, 6, D_B), 9, [[3, 6]]),
+    "blocks_2 (3,6)": ((PRETRAIN_BATCH * 6, 3, D_B), 9, [[3, 6]]),
+    "fusion": ((PRETRAIN_BATCH, 18, D_B), 3, [[2, 9], [3, 6]]),
+}
+MASKED_TOL = {  # scaled error |x - ref| / max(1, |ref|); loss relative
+    "float32": {"latent": 2e-5, "pred": 1e-4, "loss_rel": 1e-5},
+    "bfloat16": {"latent": 5e-2, "pred": 5e-2, "loss_rel": 1e-2},
+}
 
 
 def fail(msg: str) -> None:
@@ -189,6 +217,259 @@ def time_ms(fn, iters: int, rounds: int = 3, warmup: int = 2) -> float:
     return times[len(times) // 2]
 
 
+def bounds(fb, dname: str, kernel: str, m: int, s: int, d: int, hid: int, esize: int, w):
+    """(bound_ms, bound_by, extra keys): operations over the rate of the
+    kernel's arithmetic against bytes over 3.35 TB/s. float32 gets both
+    bounds: on the CUDA cores (bound_ms) and as three TF32 products with
+    the hi + lo pack (bound_3xtf32_ms)."""
+    flops, nbytes = block_cost(m, s, d, hid, esize, weight_bytes(w))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    if dname == "float32":
+        p32 = w if isinstance(w, fb.BlockParams) else w.params
+        f32_bytes = block_cost(m, s, d, hid, esize, weight_bytes(p32))[1]
+        t_ops = flops / PEAK_FLOPS[dname] * 1e3
+        bound = max(t_ops, f32_bytes / HBM_BYTES_PER_S * 1e3)
+        by = "operations" if t_ops >= f32_bytes / HBM_BYTES_PER_S * 1e3 else "bytes"
+        extra = {"gflop": flops / 1e9, "mbytes": f32_bytes / 1e6}
+        if kernel == "fused_block_tf32x3":
+            t3 = 3 * flops / PEAK_TF32 * 1e3
+            extra.update(bound_3xtf32_ms=max(t3, t_bytes),
+                         bound_3xtf32_by="operations" if t3 >= t_bytes else "bytes",
+                         mbytes_3xtf32=nbytes / 1e6)
+        return bound, by, extra
+    t_ops = flops / PEAK_FLOPS[dname] * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+            {"gflop": flops / 1e9, "mbytes": nbytes / 1e6})
+
+
+def l2_weight_mb(kernel: str, m: int, s: int, d: int, w):
+    """Weight bytes a launch pulls from L2: the whole pack once per row tile."""
+    if kernel == "fused_block":
+        return None  # streamed from L2 per product into registers: not counted
+    rows = 64 if kernel == "fused_block_tf32x3" or d > 128 else 128
+    tiles = -(-m // (rows // s))
+    return tiles * weight_bytes(w) / 1e6
+
+
+def time_case(fb, dtype, dname: str, name: str, shape, gen, dev, **tags):
+    """Check the route's kernel against ``block_reference`` on seeded
+    weights and input of ``shape``, then time the kernel, the plain version
+    and the port's Block module with CUDA events; prints and returns the
+    row and the kernel's max absolute error."""
+    import torch
+
+    m, s, d = shape
+    hid = HID_B if d == D_B else {64: 172, 256: 684}[d]
+    kernel = kernel_of(dname, d)
+    p = random_block(d, hid, gen, dev)
+    w = fb.kernel_weights(p, dtype)
+    blk = block_module(p, d // 16, dtype)
+    x = torch.randn(m, s, d, generator=gen).to(dev, dtype)
+    err = compare(fb.fused_encoder_block(x, w, d // 16), fb.block_reference(x, p, d // 16),
+                  dname, {"kernel": kernel, "block": name, "shape": [m, s, d], "dtype": dname,
+                          **tags})
+    with torch.inference_mode():
+        ms = time_ms(lambda: fb.fused_encoder_block(x, w, d // 16), iters=10)
+        plain_ms = time_ms(lambda: fb.block_reference(x, p, d // 16), iters=3)
+        modules_ms = time_ms(lambda: blk(x), iters=5)
+    bound_ms, bound_by, extra = bounds(fb, dname, kernel, m, s, d, hid, x.element_size(), w)
+    share = {"share_of_bound": bound_ms / ms}
+    if "bound_3xtf32_ms" in extra:  # the 3xTF32 kernel is read against its own arithmetic
+        share = {"share_of_bound": extra["bound_3xtf32_ms"] / ms, "share_of": "bound_3xtf32_ms"}
+    row = {"kernel": kernel, "block": name, **tags, "shape": [m, s, d], "dtype": dname, "ms": ms,
+           "plain_ms": plain_ms, "modules_ms": modules_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, **extra, **share,
+           "tflops": extra["gflop"] / ms, "l2_weight_mb": l2_weight_mb(kernel, m, s, d, w)}
+    print(json.dumps(row), flush=True)
+    return row, err
+
+
+def to_device(draws, dev):
+    """A step's injected draws (flips, kept grid; no drop-path) on ``dev``."""
+    from hsimae_tpu_torch.models.masking import GridMask
+    from hsimae_tpu_torch.train.pretrain import PretrainDraws
+
+    return PretrainDraws(tuple(f.to(dev) for f in draws.flips),
+                         GridMask(*(t.to(dev) for t in draws.grid)), None)
+
+
+def pretrain_step_card_vs_cpu(smi_line: str) -> dict:
+    """Phase 8: three float32 HSIMAE-B pretrain steps on the card and the
+    same three on the CPU, from one seeded init, one batch and injected
+    draws (both kept grids); losses and final parameters must agree."""
+    import torch
+    from hsimae_tpu_torch.config import preset
+    from hsimae_tpu_torch.models.hsimae import build_hsimae
+    from hsimae_tpu_torch.train.optim import pretrain_optimizer
+    from hsimae_tpu_torch.train.pretrain import draw_pretrain, make_pretrain_step
+
+    cfg = preset("HSIMAE-B", compute_dtype=torch.float32)
+    x = torch.rand(STEP_BATCH, cfg.img_size, cfg.img_size, cfg.bands,
+                   generator=torch.Generator().manual_seed(7))
+    probe = build_hsimae(cfg, device="cpu")
+    gen = torch.Generator().manual_seed(8)
+    draws = [draw_pretrain(probe, STEP_BATCH, lt, ll, gen, "cpu") for lt, ll in STEP_GRIDS]
+
+    def run(device):
+        model = build_hsimae(cfg, seed=0, device=device)
+        opt, sched = pretrain_optimizer(model, 5e-3, 0.05, total_steps=STEP_TOTAL)
+        step = make_pretrain_step(model, opt, sched)
+        losses = [step(x.to(device), lt, ll, draws=to_device(d, device)).item()
+                  for (lt, ll), d in zip(STEP_GRIDS, draws)]
+        return losses, {k: v.detach().cpu() for k, v in model.named_parameters()}, sched
+
+    t0 = time.perf_counter()
+    card_losses, card_params, sched = run("cuda")
+    t_card = time.perf_counter() - t0
+    cpu_losses, cpu_params, _ = run("cpu")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses))
+    param_err = max(((card_params[k] - v).abs() / v.abs().clamp(min=1.0)).max().item()
+                    for k, v in cpu_params.items())
+    moved = max((card_params[k] - v).abs().max().item() for k, v in
+                build_hsimae(cfg, seed=0, device="cpu").named_parameters())
+    ok = loss_rel <= STEP_LOSS_RTOL and param_err <= STEP_PARAM_TOL
+    row = {"phase": "pretrain_step_card_vs_cpu", "model": "HSIMAE-B", "dtype": "float32",
+           "batch": STEP_BATCH, "grids": STEP_GRIDS, "lr": [sched(k) for k in range(3)],
+           "card_losses": card_losses, "cpu_losses": cpu_losses, "max_loss_rel": loss_rel,
+           "loss_rtol": STEP_LOSS_RTOL, "max_param_scaled_err": param_err,
+           "param_tol": STEP_PARAM_TOL, "max_param_move": moved, "card_s": t_card,
+           "card": smi_line, "ok": ok}
+    print(json.dumps(row), flush=True)
+    if not all(math.isfinite(v) for v in card_losses + cpu_losses) or not ok:
+        fail(f"pretrain steps on the card disagree with the CPU: {row}")
+    return row
+
+
+def cli_pretrain(smi_line: str, fb, workdir: Path) -> dict:
+    """Phase 9: HSIMAE-B pretraining through ``hsimae_tpu_torch.cli.pretrain``
+    on the card. bf16: two epochs (a checkpoint each epoch), then a run
+    stopped after epoch 1 and resumed, whose epoch-2 loss must equal the
+    uninterrupted run's; then one float32 epoch. Training launches no
+    kernel (the Block modules run under autograd)."""
+    import torch
+    from hsimae_tpu_torch.cli import pretrain as cli
+    from hsimae_tpu_torch.train.pretrain import run_pretraining
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    source, index, _, _ = cli.prepare(cli.build_parser().parse_args(PRETRAIN_ARGV))
+    n_cuts = len(index)
+    spe = math.ceil(n_cuts / PRETRAIN_BATCH)
+    del source
+    argv = PRETRAIN_ARGV + ["--checkpoint-every", str(spe)]
+
+    def run(tag, extra):
+        fb.TF32X3_LAUNCHES = fb.LAUNCHES = fb.WGMMA_LAUNCHES = 0
+        torch.cuda.reset_peak_memory_stats()
+        _, hist = cli.main(argv + ["--workdir", str(workdir / tag)] + extra)
+        torch.cuda.synchronize()
+        counts = launch_counts(fb)
+        if any(counts.values()):
+            fail(f"the pretrain step launched a block kernel: {counts}")
+        return hist, torch.cuda.max_memory_allocated()
+
+    hist, peak = run("bf16", [])
+    losses = hist["epoch_loss"]
+    row = {"main_path": "cli.pretrain", "model": "HSIMAE-B", "dtype": "bfloat16",
+           "batch": PRETRAIN_BATCH, "cuts": n_cuts, "steps_per_epoch": spe,
+           "epoch_loss": losses, "patches_per_sec": hist["patches_per_sec"],
+           "hsimae_b_pretrain_patches_per_sec_per_chip": hist["patches_per_sec"][1],
+           "max_memory_allocated_bytes": peak, "kernel_launches": 0, "card": smi_line}
+    print(json.dumps(row), flush=True)
+    if len(losses) != 2 or not all(math.isfinite(v) for v in losses) or not losses[1] < losses[0]:
+        fail(f"bf16 pretraining epoch losses not finite and falling: {losses}")
+
+    # preemption after epoch 1 (same schedule), then the CLI resumes
+    args = cli.build_parser().parse_args(argv + ["--workdir", str(workdir / "resumed")])
+    source, index, mcfg, pcfg = cli.prepare(args)
+    run_pretraining(source, index.locs, mcfg, pcfg, workdir=args.workdir, resume=False,
+                    stop_after_epochs=1, device="cuda")
+    del source
+    resumed, _ = run("resumed", [])
+    rel = abs(resumed["epoch_loss"][0] - losses[1]) / abs(losses[1])
+    row_r = {"check": "resume", "dtype": "bfloat16", "uninterrupted_epoch_2": losses[1],
+             "resumed_epoch_2": resumed["epoch_loss"], "rel": rel, "rtol": RESUME_RTOL,
+             "card": smi_line, "ok": len(resumed["epoch_loss"]) == 1 and rel <= RESUME_RTOL}
+    print(json.dumps(row_r), flush=True)
+    if not row_r["ok"]:
+        fail(f"resumed run disagrees with the uninterrupted one: {row_r}")
+
+    f32, peak32 = run("f32", ["--no-bf16", "--epochs", "1"])
+    row32 = {"main_path": "cli.pretrain", "model": "HSIMAE-B", "dtype": "float32",
+             "batch": PRETRAIN_BATCH, "epoch_loss": f32["epoch_loss"],
+             "patches_per_sec_epoch_1": f32["patches_per_sec"][0],
+             "max_memory_allocated_bytes": peak32, "card": smi_line}
+    print(json.dumps(row32), flush=True)
+    if not all(math.isfinite(v) for v in f32["epoch_loss"]):
+        fail(f"float32 pretraining loss not finite: {f32['epoch_loss']}")
+    shutil.rmtree(workdir, ignore_errors=True)
+    return row
+
+
+def masked_encoder_kernel(smi_line: str, fb, hsimae_model, gen, max_err: dict) -> dict:
+    """Phase 10: eval-mode ``forward_pretrain`` of HSIMAE-B at batch 2048 on
+    both kept grids, both dtypes: 21 launches a call of the dtype's kernel
+    and none of the others; loss, pred and latent against the same model
+    run through the Block modules (float32) or with every block as
+    ``block_reference`` (bfloat16); then each new launch shape checked and
+    timed (its error raises ``max_err``). Returns the launches per kernel."""
+    import torch
+    from hsimae_tpu_torch.config import preset
+    from hsimae_tpu_torch.models.masking import spatial_spectral_mask
+
+    launches = dict.fromkeys(KERNELS, 0)
+    x = torch.rand(PRETRAIN_BATCH, 9, 9, 32, generator=torch.Generator().manual_seed(11)).cuda()
+    for dtype, dname in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16")):
+        cfg = preset("HSIMAE-B", compute_dtype=dtype)
+        model = hsimae_model.build_hsimae(cfg, seed=0, device="cuda").eval()
+        ref = model if dname == "bfloat16" else hsimae_model.build_hsimae(
+            cfg.replace(use_kernel=False), seed=0, device="cuda").eval()
+        own = MAIN_KERNEL[dname]
+        for lt, ll in MASKED_GRIDS:
+            grid = spatial_spectral_mask(PRETRAIN_BATCH, cfg.t_size, cfg.l_size, lt, ll,
+                                         torch.Generator(device="cuda").manual_seed(lt), "cuda")
+            with torch.inference_mode():
+                fb.TF32X3_LAUNCHES = fb.LAUNCHES = fb.WGMMA_LAUNCHES = 0
+                loss, pred, _, _ = model.forward_pretrain(x, lt, ll, grid=grid)
+                torch.cuda.synchronize()
+                counts = launch_counts(fb)
+                latent = model.encode_masked(x, lt, ll, grid=grid)[0]
+                orig = hsimae_model.fused_encoder_block
+                if dname == "bfloat16":  # every block as block_reference, nothing else changed
+                    hsimae_model.fused_encoder_block = lambda h, w, nh: fb.block_reference(
+                        h, w if isinstance(w, fb.BlockParams) else w.params, nh)
+                try:
+                    rloss, rpred, _, _ = ref.forward_pretrain(x, lt, ll, grid=grid)
+                    rlatent = ref.encode_masked(x, lt, ll, grid=grid)[0]
+                finally:
+                    hsimae_model.fused_encoder_block = orig
+            if counts != {k: 21 * (k == own) for k in KERNELS}:
+                fail(f"{dname} masked encoder at grid ({lt}, {ll}) launched {counts}, "
+                     f"expected 21 of {own} only")
+            launches[own] += counts[own]
+
+            def scaled(a, b):
+                return ((a.float() - b.float()).abs() / b.float().abs().clamp(min=1.0)).max().item()
+
+            errs = {"latent": scaled(latent, rlatent), "pred": scaled(pred, rpred),
+                    "loss_rel": abs(loss.item() - rloss.item()) / abs(rloss.item())}
+            tol = MASKED_TOL[dname]
+            ok = all(errs[k] <= tol[k] for k in tol) and math.isfinite(loss.item())
+            print(json.dumps({"check": "forward_pretrain_eval", "dtype": dname, "grid": [lt, ll],
+                              "batch": PRETRAIN_BATCH, "launches": counts[own],
+                              "reference": "block_modules" if dname == "float32"
+                              else "block_reference", **errs, "tol": tol, "card": smi_line,
+                              "ok": ok}), flush=True)
+            if not ok:
+                fail(f"{dname} masked encoder at grid ({lt}, {ll}) disagrees: {errs}")
+        del model, ref
+        torch.cuda.empty_cache()
+        for name, (shape, count, grids) in MASKED_SHAPES.items():
+            row, err = time_case(fb, dtype, dname, name, shape, gen, torch.device("cuda"),
+                                 grids=grids, launches_per_call=count)
+            max_err[row["kernel"]] = max(max_err[row["kernel"]], err)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -244,38 +525,6 @@ def main() -> int:
                           {"kernel": kernel, "shape": [m, s, d], "dtype": dname})
             max_err[kernel] = max(max_err[kernel], err)
 
-    def bounds(dname, kernel, m, s, d, hid, esize, w):
-        """(bound_ms, bound_by, extra keys): operations over the rate of the
-        kernel's arithmetic against bytes over 3.35 TB/s. float32 gets both
-        bounds: on the CUDA cores (bound_ms) and as three TF32 products with
-        the hi + lo pack (bound_3xtf32_ms)."""
-        flops, nbytes = block_cost(m, s, d, hid, esize, weight_bytes(w))
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        if dname == "float32":
-            p32 = w if isinstance(w, fb.BlockParams) else w.params
-            f32_bytes = block_cost(m, s, d, hid, esize, weight_bytes(p32))[1]
-            t_ops = flops / PEAK_FLOPS[dname] * 1e3
-            bound = max(t_ops, f32_bytes / HBM_BYTES_PER_S * 1e3)
-            by = "operations" if t_ops >= f32_bytes / HBM_BYTES_PER_S * 1e3 else "bytes"
-            extra = {"gflop": flops / 1e9, "mbytes": f32_bytes / 1e6}
-            if kernel == "fused_block_tf32x3":
-                t3 = 3 * flops / PEAK_TF32 * 1e3
-                extra.update(bound_3xtf32_ms=max(t3, t_bytes),
-                             bound_3xtf32_by="operations" if t3 >= t_bytes else "bytes",
-                             mbytes_3xtf32=nbytes / 1e6)
-            return bound, by, extra
-        t_ops = flops / PEAK_FLOPS[dname] * 1e3
-        return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
-                {"gflop": flops / 1e9, "mbytes": nbytes / 1e6})
-
-    def l2_weight_mb(kernel, m, s, d, w):
-        """Weight bytes a launch pulls from L2: the whole pack once per row tile."""
-        if kernel == "fused_block":
-            return None  # streamed from L2 per product into registers: not counted
-        rows = 64 if kernel == "fused_block_tf32x3" or d > 128 else 128
-        tiles = -(-m // (rows // s))
-        return tiles * weight_bytes(w) / 1e6
-
     keys = ("ms", "plain_ms", "modules_ms", "bound_ms", "bound_3xtf32_ms")
     per_batch = {k: dict.fromkeys(keys, 0.0) for k in MAIN_KERNEL.values()}
     bound_kinds = {k: set() for k in KERNELS}
@@ -283,36 +532,15 @@ def main() -> int:
     cases = [(dtype, dname, name, shape, count) for dtype, dname in dnames.items()
              for name, (shape, count) in MAIN_SHAPES.items()]
     cases.append((torch.float32, "float32", "fusion_L", D256_SHAPE, 0))
-    for dtype, dname, name, (m, s, d), count in cases:
-        hid = HID_B if d == D_B else 684
-        kernel = kernel_of(dname, d)
-        p = random_block(d, hid, gen, dev)
-        w = fb.kernel_weights(p, dtype)
-        blk = block_module(p, d // 16, dtype)
-        x = torch.randn(m, s, d, generator=gen).to(dev, dtype)
-        err = compare(fb.fused_encoder_block(x, w, d // 16), fb.block_reference(x, p, d // 16),
-                      dname, {"kernel": kernel, "block": name, "shape": [m, s, d], "dtype": dname})
-        max_err[kernel] = max(max_err[kernel], err)
-        with torch.inference_mode():
-            ms = time_ms(lambda: fb.fused_encoder_block(x, w, d // 16), iters=10)
-            plain_ms = time_ms(lambda: fb.block_reference(x, p, d // 16), iters=3)
-            modules_ms = time_ms(lambda: blk(x), iters=5)
-        bound_ms, bound_by, extra = bounds(dname, kernel, m, s, d, hid, x.element_size(), w)
-        share = {"share_of_bound": bound_ms / ms}
-        if "bound_3xtf32_ms" in extra:  # the 3xTF32 kernel is read against its own arithmetic
-            share = {"share_of_bound": extra["bound_3xtf32_ms"] / ms, "share_of": "bound_3xtf32_ms"}
-        row = {"kernel": kernel, "block": name, "shape": [m, s, d], "dtype": dname, "ms": ms,
-               "plain_ms": plain_ms, "modules_ms": modules_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, **extra, **share,
-               "tflops": extra["gflop"] / ms, "l2_weight_mb": l2_weight_mb(kernel, m, s, d, w)}
-        print(json.dumps(row), flush=True)
-        bound_kinds[kernel].add(bound_by)
+    for dtype, dname, name, shape, count in cases:
+        row, err = time_case(fb, dtype, dname, name, shape, gen, dev)
+        max_err[row["kernel"]] = max(max_err[row["kernel"]], err)
+        bound_kinds[row["kernel"]].add(row["bound_by"])
         if count:
             for k in keys:
-                per_batch[kernel][k] += count * row.get(k, 0.0)
+                per_batch[row["kernel"]][k] += count * row.get(k, 0.0)
         else:
             d256 = row
-        del x, p, w, blk
     torch.cuda.empty_cache()
 
     # ---- 4, 5. main path, float32 then bfloat16, through the CLI ----
@@ -384,15 +612,29 @@ def main() -> int:
             fail(f"{dname} prediction map agrees with {ref_name} on {agree:.5f} of pixels "
                  f"(< {MIN_AGREEMENT})")
 
+    # ---- 8. pretrain steps, card against CPU (float32) ----
+    pretrain_step_card_vs_cpu(smi_line)
+    torch.cuda.empty_cache()
+
+    # ---- 9. pretraining through the CLI: bf16 (resumed too), then f32 ----
+    cli_pretrain(smi_line, fb, Path(__file__).resolve().parent / "_smoke_runs")
+    torch.cuda.empty_cache()
+
+    # ---- 10. the kernel on the masked encoder (eval-mode forward_pretrain) ----
+    masked = masked_encoder_kernel(smi_line, fb, hsimae_model, gen, max_err)
+
     # ---- 7. result ----
-    # main-path kernels: per batch of the main path (21 launches); the
-    # CUDA-core kernel serves float32 at D 256 only, off this main path:
-    # launches 0, times of one launch at HSIMAE-L's fusion shape
+    # main-path kernels: per batch of the evaluate path (21 launches); the
+    # CUDA-core kernel serves float32 at D 256 only, off these paths:
+    # launches 0, times of one launch at HSIMAE-L's fusion shape.
+    # launches_by_path: each path with the counts set to 0 just before it
     lines = []
     for name, (dname, source, _) in KERNELS.items():
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": "hsimae_tpu/ops/fused_block.py:158", "dtype": dname,
-                 "launches": launches.get(name, 0), "max_abs_err": max_err[name]}
+                 "launches": launches.get(name, 0), "max_abs_err": max_err[name],
+                 "launches_by_path": {"cli.evaluate": launches.get(name, 0), "cli.pretrain": 0,
+                                      "forward_pretrain eval": masked[name]}}
         if name in per_batch:
             times = dict(per_batch[name])
             if name != "fused_block_tf32x3":

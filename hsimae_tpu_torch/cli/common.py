@@ -1,13 +1,13 @@
-"""Shared CLI plumbing: scene loading (``.npy`` cubes or synthetic) and
-model-preset selection, with the flags and defaults of
-``hsimae_tpu/cli/common.py``. Named datasets, ``--remat`` and
+"""Shared CLI plumbing: scene loading (``.npy`` cubes or synthetic, one
+labeled scene or a pretraining corpus) and model-preset selection, with the
+flags and defaults of ``hsimae_tpu/cli/common.py``. Named datasets and
 msgpack/``.pkl`` checkpoints are not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,6 +25,9 @@ def add_model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--bf16", action="store_true", default=True,
                    help="bf16 compute dtype (params stay f32)")
     p.add_argument("--no-bf16", dest="bf16", action="store_false")
+    p.add_argument("--remat", action="store_true", default=False,
+                   help="recompute transformer blocks in the backward pass "
+                   "(same numerics, less activation memory; ModelConfig.remat)")
 
 
 def model_config(args) -> ModelConfig:
@@ -35,6 +38,7 @@ def model_config(args) -> ModelConfig:
         patch_size=args.patch_size,
         b_patch_size=args.b_patch_size,
         compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
+        remat=getattr(args, "remat", False),
     )
 
 
@@ -80,6 +84,29 @@ def load_labeled_scene(args) -> Tuple[np.ndarray, np.ndarray]:
     if not args.scene or not getattr(args, "gt", None):
         raise SystemExit("need --scene and --gt, or --synthetic")
     return np.load(args.scene), np.load(args.gt)
+
+
+def load_pretrain_scenes(args) -> List[np.ndarray]:
+    """The pretraining corpus: ``--synthetic`` (``--synthetic-texture`` for
+    the textured family) or ``--scenes *.npy``."""
+    if args.synthetic:
+        from hsimae_tpu_torch.data.synthetic import (
+            make_synthetic_pretrain_scenes,
+            make_textured_pretrain_scenes,
+        )
+
+        textured = getattr(args, "synthetic_texture", False)
+        gen = make_textured_pretrain_scenes if textured else make_synthetic_pretrain_scenes
+        kw = {}
+        cpc = getattr(args, "synthetic_cells_per_class", None)
+        if textured and cpc is not None:
+            kw["cells_per_class"] = cpc
+        return gen(n_scenes=args.synthetic_scenes,
+                   size_range=(args.synthetic_size // 2, args.synthetic_size),
+                   bands=args.synthetic_bands, seed=resolve_synthetic_seed(args), **kw)
+    if not args.scenes:
+        raise SystemExit("need --scenes *.npy, or --synthetic")
+    return [np.load(p) for p in args.scenes]
 
 
 def load_state_dict(path: Optional[str]) -> Optional[dict]:

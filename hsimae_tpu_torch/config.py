@@ -1,15 +1,18 @@
 """Configuration dataclasses and named presets.
 
 Port-owned copy of ``hsimae_tpu/config.py`` (``ModelConfig``, ``PRESETS``,
-``preset``, ``EvalConfig``). Differences from the JAX package:
+``preset``, ``PretrainConfig``, ``EvalConfig``). Differences from the JAX
+package:
 
 * ``compute_dtype`` is a ``torch.dtype``;
 * ``use_pallas`` is renamed ``use_kernel`` and defaults to True: on the
   inference path every encoder block goes through
   :func:`hsimae_tpu_torch.ops.fused_block.fused_encoder_block`, which takes
   the plain PyTorch version only for tensors on the CPU;
-* ``remat`` is not ported yet; ``EvalConfig`` has no colormap option
-  (colormaps are not ported yet).
+* ``PretrainConfig`` has no ``fused_steps`` (the TPU ``lax.scan`` dispatch
+  path) and no ``checkpoint_backend``/``ckpt_max_to_keep`` (orbax is not
+  ported); ``adam_mu_dtype`` stays a string;
+* ``EvalConfig`` has no colormap option (colormaps are not ported yet).
 """
 
 from __future__ import annotations
@@ -22,8 +25,7 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Architecture of the HSIMAE family (encoder + cls head; the MAE decoder
-    fields are kept so presets match, the decoder itself is not ported yet).
+    """Architecture of the HSIMAE family (encoder + MAE decoder + cls head).
 
     * ``num_heads = embed_dim // 16``, ``decoder_num_heads = decoder_dim // 8``.
     * SwiGLU hidden dim is rounded with ``multiple_of == int(mlp_ratio)``.
@@ -61,6 +63,10 @@ class ModelConfig:
     # run encoder blocks through the fused-block kernel on the inference
     # path (module not training); training uses the Block modules
     use_kernel: bool = True
+
+    # recompute every Block in the backward pass (torch.utils.checkpoint):
+    # only block inputs are saved; outputs and gradients are unchanged
+    remat: bool = False
 
     def __post_init__(self):
         if self.num_heads is None:
@@ -115,6 +121,27 @@ PRESETS = {
 
 def preset(name: str, **overrides) -> ModelConfig:
     return PRESETS[name].replace(**overrides)
+
+
+@dataclasses.dataclass(frozen=True)
+class PretrainConfig:
+    """MAE pretraining hyperparameters (the JAX package's defaults)."""
+
+    mask_ratio: float = 0.5
+    lr: float = 5e-3
+    weight_decay: float = 5e-2
+    batch_size: int = 512
+    epochs: int = 100
+    warmup_frac: float = 0.05  # fraction of all steps
+    lr_min: float = 1e-6
+    adam_b1: float = 0.9
+    adam_b2: float = 0.95
+    # storage dtype of Adam's first moment ("bfloat16"; None = float32); the
+    # update math runs in float32 and the second moment stays float32
+    adam_mu_dtype: Optional[str] = None
+    seed: int = 42
+    log_every: int = 50
+    checkpoint_every_steps: int = 0  # 0 = only the final parameters
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,14 +1,21 @@
 """Scene-resident patch gathering on the device.
 
-Counterpart of the scene-eval part of ``hsimae_tpu/data/pipeline.py``: the
-symmetric-padded scene lives on the device once, and each batch of per-pixel
-patches is one flat index gather from it. Patch layout is channels-last
-``[B, ps, ps, C]``.
+Counterpart of ``hsimae_tpu/data/pipeline.py``: scenes live on the device
+once, and each batch of patches is one index gather from them.
+
+* ``ScenePatchSource``: one symmetric-padded scene; per-pixel patches for
+  full-scene classification;
+* ``MultiScenePatchSource``: many scenes of different shapes in one flat
+  buffer; pretraining cuts by ``(row, col, scene_id)``, normalised per scene;
+* ``augment_flips``: per-sample horizontal and vertical flips, with
+  injectable flip masks.
+
+Patch layout is channels-last ``[B, ps, ps, C]``.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, Tuple
+from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +49,86 @@ class ScenePatchSource:
         flat = (base[:, None] + self._offsets[None, :]).reshape(-1)
         ps = self.patch_size
         return self._flat_padded.index_select(0, flat).reshape(idx.shape[0], ps, ps, self.c)
+
+
+def gather_multiscene(flat: torch.Tensor, widths: torch.Tensor, bases: torch.Tensor,
+                      mins: torch.Tensor, maxs: torch.Tensor, locs: torch.Tensor,
+                      ps: int) -> torch.Tensor:
+    """``ps``-wide windows at ``locs [B, 3]`` (row, col, scene_id) from the
+    concatenated scenes ``flat [sum(h*w), C]``, upcast to float32 after the
+    gather, then ``(x - min) / (max - min)`` with the scene's constants
+    -> ``[B, ps, ps, C]``."""
+    locs = locs.long()
+    r, c, sid = locs[:, 0], locs[:, 1], locs[:, 2]
+    w = widths[sid]
+    base = bases[sid] + r * w + c
+    d = torch.arange(ps, device=flat.device)
+    idx = base[:, None, None] + d[None, :, None] * w[:, None, None] + d[None, None, :]
+    x = flat[idx].float()
+    mn = mins[sid][:, None, None, None]
+    mx = maxs[sid][:, None, None, None]
+    return (x - mn) / (mx - mn)
+
+
+class MultiScenePatchSource:
+    """Many scenes (one band count, any sizes) in one flat buffer on
+    ``device``, stored in ``storage_dtype`` (float32 or bfloat16: half the
+    memory and upload of a big corpus; patches are upcast after the gather).
+    ``gather(locs)`` takes rows of a :class:`PretrainCutIndex`."""
+
+    def __init__(self, scenes: Sequence[np.ndarray], patch_size: int = 9,
+                 scene_min: Optional[np.ndarray] = None,
+                 scene_max: Optional[np.ndarray] = None,
+                 storage_dtype: torch.dtype = torch.float32,
+                 device: str | torch.device = "cuda"):
+        self.patch_size = patch_size
+        self.device = torch.device(device)
+        c = scenes[0].shape[-1]
+        if any(s.shape[-1] != c for s in scenes):
+            raise ValueError("all scenes must have the same band count")
+        self.c = c
+        widths, bases, offset = [], [], 0
+        for s in scenes:
+            widths.append(s.shape[1])
+            bases.append(offset)
+            offset += s.shape[0] * s.shape[1]
+        # cast per scene on the host, then one upload
+        self._flat = torch.cat([
+            torch.from_numpy(np.ascontiguousarray(s, dtype=np.float32).reshape(-1, c)).to(storage_dtype)
+            for s in scenes]).to(self.device)
+        self._widths = torch.tensor(widths, dtype=torch.int64, device=self.device)
+        self._bases = torch.tensor(bases, dtype=torch.int64, device=self.device)
+        n = len(scenes)
+        self._min = torch.as_tensor(scene_min if scene_min is not None else np.zeros(n),
+                                    dtype=torch.float32).to(self.device)
+        self._max = torch.as_tensor(scene_max if scene_max is not None else np.ones(n),
+                                    dtype=torch.float32).to(self.device)
+
+    def gather(self, locs) -> torch.Tensor:
+        locs = torch.as_tensor(np.asarray(locs), dtype=torch.int64).to(self.device)
+        return gather_multiscene(self._flat, self._widths, self._bases, self._min, self._max,
+                                 locs, self.patch_size)
+
+
+def draw_flips(n: int, generator: Optional[torch.Generator] = None, p: float = 0.5,
+               device: str | torch.device = "cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-sample (horizontal, vertical) flip masks, each True with
+    probability ``p``."""
+    fh = torch.rand(n, generator=generator, device=device) < p
+    fv = torch.rand(n, generator=generator, device=device) < p
+    return fh, fv
+
+
+def augment_flips(x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                  flips: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                  p: float = 0.5) -> torch.Tensor:
+    """Per-sample random flips of ``[B, h, w, C]`` patches: horizontal flips
+    the width axis, vertical the height axis, horizontal first. ``flips``
+    gives the ``(fh, fv)`` masks; without it they are drawn from
+    ``generator``."""
+    fh, fv = flips if flips is not None else draw_flips(x.shape[0], generator, p, x.device)
+    x = torch.where(fh[:, None, None, None], x.flip(2), x)
+    return torch.where(fv[:, None, None, None], x.flip(1), x)
 
 
 def batch_indices(

@@ -1,7 +1,9 @@
 """Synthetic hyperspectral scenes for tests and benchmarks.
 
-Port-owned copy of ``make_synthetic_scene`` and ``make_textured_scene`` from
-``hsimae_tpu/data/synthetic.py`` (numpy only; same seeds, same scenes).
+Port-owned copy of ``make_synthetic_scene``, ``make_textured_scene`` and
+their pretraining corpora (``make_synthetic_pretrain_scenes``,
+``make_textured_pretrain_scenes``) from ``hsimae_tpu/data/synthetic.py``
+(numpy only; same seeds, same scenes).
 
 No public HSI dataset ships with this environment, so end-to-end tests and
 throughput benchmarks run on generated scenes: a Voronoi segmentation of the
@@ -181,3 +183,42 @@ def make_textured_scene(
     nbg = int((gt == 0).sum())
     scene[gt == 0] = 0.1 + noise * rng.standard_normal((nbg, bands))
     return scene.astype(np.float32), gt
+
+
+def make_textured_pretrain_scenes(
+    n_scenes: int = 3,
+    size_range=(48, 80),
+    bands: int = 103,
+    seed: int = 0,
+    cells_per_class: Optional[int] = None,
+):
+    """Unlabeled texture-family corpus for MAE pretraining: scenes of
+    :func:`make_textured_scene` with seeds ``seed + 200 + i`` and random
+    sizes in ``size_range``."""
+    rng = np.random.default_rng(seed)
+    scenes = []
+    for i in range(n_scenes):
+        h = int(rng.integers(*size_range))
+        w = int(rng.integers(*size_range))
+        s, _ = make_textured_scene(h, w, bands, seed=seed + 200 + i,
+                                   cells_per_class=cells_per_class)
+        scenes.append(s)
+    return scenes
+
+
+def make_synthetic_pretrain_scenes(
+    n_scenes: int = 3,
+    size_range=(40, 80),
+    bands: int = 103,
+    seed: int = 0,
+):
+    """A small HSIHybrid-like corpus: scenes of :func:`make_synthetic_scene`
+    (5 classes, seeds ``seed + 100 + i``) with random sizes in ``size_range``."""
+    rng = np.random.default_rng(seed)
+    scenes = []
+    for i in range(n_scenes):
+        h = int(rng.integers(*size_range))
+        w = int(rng.integers(*size_range))
+        s, _ = make_synthetic_scene(h, w, bands, n_classes=5, seed=seed + 100 + i)
+        scenes.append(s)
+    return scenes

@@ -1,4 +1,4 @@
-"""Transformer primitives as ``nn.Module``s (inference only).
+"""Transformer primitives as ``nn.Module``s.
 
 Counterparts of ``hsimae_tpu/models/layers.py``. Parameter names and shapes
 follow the reference ``state_dict`` (``proj.weight [C, 1, u, p, p]``,
@@ -6,13 +6,13 @@ follow the reference ``state_dict`` (``proj.weight [C, 1, u, p, p]``,
 JAX package load with ``load_state_dict(strict=True)``.
 
 Numerics follow the JAX modules: linear layers compute in the configured
-compute dtype, LayerNorm (eps 1e-5) and softmax in float32. Drop-path is the
-identity at inference and is not ported yet.
+compute dtype, LayerNorm (eps 1e-5) and softmax in float32. Drop-path takes
+its per-sample keep masks as arguments, so a caller can inject the draws.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -133,22 +133,44 @@ class SwiGLU(nn.Module):
         return self.w2(F.silu(self.w1(x)) * self.w3(x))
 
 
+def drop_path(x: torch.Tensor, rate: float, keep: Optional[torch.Tensor]) -> torch.Tensor:
+    """Stochastic depth: sample ``i`` of ``x`` becomes ``x[i] / (1 - rate)``
+    where ``keep[i]`` (a bool per sample) holds, else zero. Identity when
+    ``rate`` is 0 or no mask is given (inference)."""
+    if rate == 0.0 or keep is None:
+        return x
+    m = keep.reshape((x.shape[0],) + (1,) * (x.ndim - 1))
+    return torch.where(m, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def draw_keep(n: int, rate: float, generator: Optional[torch.Generator],
+              device) -> torch.Tensor:
+    """A per-sample keep mask: True with probability ``1 - rate``."""
+    return torch.rand(n, generator=generator, device=device) < (1.0 - rate)
+
+
 class Block(nn.Module):
-    """Pre-LN transformer block: x + attn(ln x); x + swiglu(ln x)."""
+    """Pre-LN transformer block: x + dp(attn(ln x)); x + dp(swiglu(ln x))."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
-                 qkv_bias: bool = True, dtype: torch.dtype = torch.float32):
+                 qkv_bias: bool = True, dtype: torch.dtype = torch.float32,
+                 drop_path_rate: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         self.compute_dtype = dtype
+        self.drop_path_rate = float(drop_path_rate)
         self.norm1 = LayerNorm(dim)
         self.attn = Attention(dim, num_heads, qkv_bias, dtype)
         self.norm2 = LayerNorm(dim)
         self.mlp = SwiGLU(dim, mlp_ratio, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x).to(self.compute_dtype))
-        return x + self.mlp(self.norm2(x).to(self.compute_dtype))
+    def forward(self, x: torch.Tensor,
+                keep: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+        """``keep``: the drop-path keep masks of the attention and the MLP
+        branch, ``[x.shape[0]]`` bool each; None: no drop-path."""
+        k1, k2 = keep if keep is not None else (None, None)
+        x = x + drop_path(self.attn(self.norm1(x).to(self.compute_dtype)), self.drop_path_rate, k1)
+        return x + drop_path(self.mlp(self.norm2(x).to(self.compute_dtype)), self.drop_path_rate, k2)
 
 
 def init_block_(block: Block, generator: torch.Generator, trunc: bool = True) -> None:

@@ -1,0 +1,156 @@
+"""Optimizer and learning-rate schedule of MAE pretraining.
+
+Counterpart of ``hsimae_tpu/train/optim.py`` (``timm_cosine_schedule``,
+``wd_mask``, ``adamw``, ``pretrain_optimizer``); ``finetune_optimizer`` is
+not ported yet.
+
+* The schedule is timm's ``CosineLRScheduler`` (one cycle): linear warmup
+  from ``warmup_lr_init`` for ``t < warmup_t``, else
+  ``lr_min + (lr - lr_min) * (1 + cos(pi * t / t_initial)) / 2`` on the
+  global ``t``. Pretraining shifts it by one step (timm is stepped after
+  the update and starts at ``warmup_lr_init``): ``sched(t) = cosine(max(t-1, 0))``.
+* Weight decay skips every parameter whose dotted name contains ``bias`` or
+  ``norm`` (the reference's rule by name).
+* :class:`AdamW` has optax's ``adamw`` arithmetic: decoupled decay
+  ``lr * wd * p`` added to the Adam direction, ``eps`` outside the square
+  root, bias correction, the first moment optionally stored in bfloat16.
+  Update ``k`` (``k`` updates already applied) runs at ``sched(k)``: the
+  caller sets each group's ``lr`` before each step.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, Iterable, Optional, Tuple
+
+import torch
+
+
+def timm_cosine_schedule(base_lr: float, t_initial: int, warmup_t: int = 0,
+                         lr_min: float = 0.0,
+                         warmup_lr_init: float = 0.0) -> Callable[[int], float]:
+    """timm ``CosineLRScheduler`` (single cycle) as a function of the step."""
+
+    def schedule(t) -> float:
+        t = float(t)
+        if warmup_t > 0 and t < warmup_t:
+            return warmup_lr_init + t * ((base_lr - warmup_lr_init) / warmup_t)
+        return lr_min + 0.5 * (base_lr - lr_min) * (1.0 + math.cos(math.pi * t / max(t_initial, 1)))
+
+    return schedule
+
+
+def wd_mask(name: str) -> bool:
+    """True when the parameter of dotted name ``name`` takes weight decay."""
+    name = name.lower()
+    return not ("bias" in name or "norm" in name)
+
+
+class AdamW:
+    """AdamW over named parameters, in two groups: ``param_groups[0]`` takes
+    weight decay, ``param_groups[1]`` does not (:func:`wd_mask`). Each group
+    holds ``params``, ``names``, ``lr`` (set it before each :meth:`step`)
+    and ``weight_decay``. The second moment is float32; the first is stored
+    in ``mu_dtype`` and updated in float32."""
+
+    def __init__(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]],
+                 weight_decay: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 mu_dtype: Optional[torch.dtype] = None):
+        decay, plain = ([], []), ([], [])
+        for name, p in named_params:
+            if p.requires_grad:
+                group = decay if wd_mask(name) else plain
+                group[0].append(name)
+                group[1].append(p)
+        self.param_groups = [
+            {"names": decay[0], "params": decay[1], "lr": 0.0, "weight_decay": weight_decay},
+            {"names": plain[0], "params": plain[1], "lr": 0.0, "weight_decay": 0.0},
+        ]
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.mu_dtype = mu_dtype or torch.float32
+        self.count = 0  # updates applied
+        self.mu = [[torch.zeros_like(p, dtype=self.mu_dtype) for p in g["params"]]
+                   for g in self.param_groups]
+        self.nu = [[torch.zeros_like(p, dtype=torch.float32) for p in g["params"]]
+                   for g in self.param_groups]
+
+    def zero_grad(self) -> None:
+        for g in self.param_groups:
+            for p in g["params"]:
+                p.grad = None
+
+    @torch.no_grad()
+    def step(self) -> None:
+        """One update of every parameter that has a gradient."""
+        b1, b2 = self.b1, self.b2
+        k = self.count + 1
+        bc1, bc2 = 1.0 - b1 ** k, 1.0 - b2 ** k
+        for g, mus, nus in zip(self.param_groups, self.mu, self.nu):
+            live = [i for i, p in enumerate(g["params"]) if p.grad is not None]
+            if not live:
+                continue
+            params = [g["params"][i] for i in live]
+            grads = [p.grad.float() for p in params]
+            nu = [nus[i] for i in live]
+            stored_mu = [mus[i] for i in live]
+            mu = stored_mu if self.mu_dtype == torch.float32 else [m.float() for m in stored_mu]
+            # mu = b1*mu + (1-b1)*g; nu = b2*nu + (1-b2)*g^2
+            torch._foreach_mul_(mu, b1)
+            torch._foreach_add_(mu, grads, alpha=1.0 - b1)
+            torch._foreach_mul_(nu, b2)
+            torch._foreach_addcmul_(nu, grads, grads, value=1.0 - b2)
+            # direction = (mu / bc1) / (sqrt(nu / bc2) + eps)
+            denom = torch._foreach_div(nu, bc2)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, self.eps)
+            upd = torch._foreach_div(mu, bc1)
+            torch._foreach_div_(upd, denom)
+            if g["weight_decay"]:
+                torch._foreach_add_(upd, params, alpha=g["weight_decay"])
+            torch._foreach_add_(params, upd, alpha=-g["lr"])
+            if mu is not stored_mu:
+                for dst, src in zip(stored_mu, mu):
+                    dst.copy_(src)
+        self.count = k
+
+    def state_dict(self) -> Dict:
+        """Moments by parameter name (CPU copies) and the update count."""
+        out = {"count": self.count, "mu": {}, "nu": {}}
+        for g, mus, nus in zip(self.param_groups, self.mu, self.nu):
+            for name, m, v in zip(g["names"], mus, nus):
+                out["mu"][name] = m.detach().cpu()
+                out["nu"][name] = v.detach().cpu()
+        return out
+
+    def load_state_dict(self, state: Dict) -> None:
+        """Copy moments saved by :meth:`state_dict` into this optimizer's
+        (keeping their dtypes and devices)."""
+        with torch.no_grad():
+            for g, mus, nus in zip(self.param_groups, self.mu, self.nu):
+                for name, m, v in zip(g["names"], mus, nus):
+                    m.copy_(state["mu"][name])
+                    v.copy_(state["nu"][name])
+        self.count = int(state["count"])
+
+
+def pretrain_optimizer(model: torch.nn.Module, lr: float, weight_decay: float,
+                       total_steps: int, warmup_frac: float = 0.05, lr_min: float = 1e-6,
+                       b1: float = 0.9, b2: float = 0.95,
+                       mu_dtype: Optional[torch.dtype] = None) -> Tuple[AdamW, Callable]:
+    """(optimizer, sched): per-step cosine with ``ceil(warmup_frac * total)``
+    warmup steps from 0, shifted by one step: ``sched(t) = cosine(max(t-1, 0))``."""
+    inner = timm_cosine_schedule(lr, t_initial=total_steps,
+                                 warmup_t=int(math.ceil(total_steps * warmup_frac)),
+                                 lr_min=lr_min, warmup_lr_init=0.0)
+
+    def sched(t) -> float:
+        return inner(max(int(t) - 1, 0))
+
+    opt = AdamW(model.named_parameters(), weight_decay, b1=b1, b2=b2, mu_dtype=mu_dtype)
+    return opt, sched
+
+
+def set_lr(optimizer: AdamW, lr: float) -> None:
+    """Set every group's learning rate (before each step)."""
+    for g in optimizer.param_groups:
+        g["lr"] = lr

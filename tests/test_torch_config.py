@@ -24,7 +24,7 @@ from hsimae_tpu_torch.models import pos_embed as tpos
 from hsimae_tpu_torch.utils import metrics as tmetrics
 
 RENAMED = {"use_pallas": "use_kernel"}  # JAX name -> port name
-DROPPED = {"remat"}  # not ported yet
+DROPPED = set()  # every JAX field is ported
 DERIVED = ("t_size", "grid_size", "l_size", "num_patches", "pixels_per_patch", "fusion_depth")
 DTYPES = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 
