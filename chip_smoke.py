@@ -30,7 +30,26 @@ Phases, each of a fixed size; any failure exits non-zero:
    blocks all run ``block_reference`` (the kernel's own semantics);
 6. warm batch loops (model built once): kernel against Block modules, in
    both dtypes;
-7. a ``kernels`` JSON line, then ``{"ok": true, "device": {...}}`` last.
+8. pretrain steps, card against CPU: three float32 HSIMAE-B steps (batch
+   64, one seeded init, injected draws on both kept grids) on the card and
+   the same three on the CPU; each loss within 1e-4 relative, the final
+   parameters within ``1e-4 * max(1, |p|)``;
+9. pretraining through ``hsimae_tpu_torch.cli.pretrain``, bf16 (bench.py's
+   setting: HSIMAE-B, batch 2048, mask ratio 0.5) on 24 synthetic scenes of
+   72-144 px at 200 bands cut to 32 by GWPCA: two epochs (finite losses,
+   the second below the first; warm patches/s of epoch 2 and peak memory
+   printed), then a run stopped after epoch 1 and resumed, whose epoch-2
+   loss must equal the uninterrupted run's within 1e-3 relative, then one
+   float32 epoch; training launches no block kernel;
+10. the kernel on the masked encoder: eval-mode ``forward_pretrain`` at
+   batch 2048 on the kept grids (2, 9) and (3, 6), in both dtypes: 21
+   launches a call of the dtype's kernel and none of the others; latent,
+   pred and loss against the Block modules (float32: latent scaled error
+   2e-5) or every block as ``block_reference`` (bfloat16: 5e-2); each new
+   launch shape checked and timed like phase 3;
+7. (last) a ``kernels`` JSON line, with each kernel's launches on each path
+   (counts set to 0 just before the path), the card's name and power limit,
+   then ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations

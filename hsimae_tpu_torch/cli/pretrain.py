@@ -84,7 +84,7 @@ def prepare(args):
 def main(argv=None):
     args = build_parser().parse_args(argv)
     source, index, mcfg, cfg = prepare(args)
-    print(f"[pretrain] {len(source._widths)} scenes, {len(index)} patches")
+    print(f"[pretrain] {len(index.scene_max)} scenes, {len(index)} patches")
     model, hist = run_pretraining(source, index.locs, mcfg, cfg, workdir=args.workdir,
                                   resume=args.resume, device=args.device)
     if hist["epoch_loss"]:

@@ -105,28 +105,28 @@ class MultiScenePatchSource:
                                     dtype=torch.float32).to(self.device)
 
     def gather(self, locs) -> torch.Tensor:
-        locs = torch.as_tensor(np.asarray(locs), dtype=torch.int64).to(self.device)
+        """Patches at ``locs [B, 3]`` (a host array or a tensor on the device)."""
+        locs = torch.as_tensor(locs, dtype=torch.int64).to(self.device)
         return gather_multiscene(self._flat, self._widths, self._bases, self._min, self._max,
                                  locs, self.patch_size)
 
 
-def draw_flips(n: int, generator: Optional[torch.Generator] = None, p: float = 0.5,
+def draw_flips(n: int, generator: Optional[torch.Generator] = None,
                device: str | torch.device = "cuda") -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-sample (horizontal, vertical) flip masks, each True with
-    probability ``p``."""
-    fh = torch.rand(n, generator=generator, device=device) < p
-    fv = torch.rand(n, generator=generator, device=device) < p
+    probability 0.5."""
+    fh = torch.rand(n, generator=generator, device=device) < 0.5
+    fv = torch.rand(n, generator=generator, device=device) < 0.5
     return fh, fv
 
 
 def augment_flips(x: torch.Tensor, generator: Optional[torch.Generator] = None,
-                  flips: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                  p: float = 0.5) -> torch.Tensor:
+                  flips: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
     """Per-sample random flips of ``[B, h, w, C]`` patches: horizontal flips
     the width axis, vertical the height axis, horizontal first. ``flips``
     gives the ``(fh, fv)`` masks; without it they are drawn from
     ``generator``."""
-    fh, fv = flips if flips is not None else draw_flips(x.shape[0], generator, p, x.device)
+    fh, fv = flips if flips is not None else draw_flips(x.shape[0], generator, x.device)
     x = torch.where(fh[:, None, None, None], x.flip(2), x)
     return torch.where(fv[:, None, None, None], x.flip(1), x)
 

@@ -255,10 +255,10 @@ class HSIMAE(nn.Module):
         if grid is None:
             grid = spatial_spectral_mask(n, c.t_size, c.l_size, len_t, len_l, generator,
                                          imgs.device)
-        if self.training and drop_keep is None and c.drop_path > 0.0:
-            drop_keep = self.draw_drop_keep(n, len_t, len_l, generator, imgs.device)
         if not self.training:
             drop_keep = None
+        elif drop_keep is None and c.drop_path > 0.0:
+            drop_keep = self.draw_drop_keep(n, len_t, len_l, generator, imgs.device)
         x = tokens + self.pos_embed.reshape(1, c.t_size, c.l_size, c.embed_dim).to(tokens.dtype)
         dim = x.shape[-1]
         x = torch.gather(x, 1, grid.ids_t[:, :, None, None].expand(-1, -1, c.l_size, dim))
@@ -310,13 +310,8 @@ class HSIMAE(nn.Module):
         loss, mean, std = mae_loss(pred, target, grid.mask, c.norm_pix_loss, sample_weight)
         return loss, pred, grid.mask, (mean, std)
 
-    def forward(self, imgs: torch.Tensor):
-        """Classification when a head exists, else the pretrain forward with
-        a maximal kept grid."""
-        if self.cfg.num_classes > 0:
-            return self.classify(imgs)
-        c = self.cfg
-        return self.forward_pretrain(imgs, max(2, c.t_size // 2), c.l_size)
+    def forward(self, imgs: torch.Tensor) -> torch.Tensor:
+        return self.classify(imgs)
 
 
 def reconstruct(pred: torch.Tensor, mask: torch.Tensor, mean, std, cfg: ModelConfig):

@@ -146,6 +146,9 @@ def run_pretraining(
     if stop_after_epochs is not None:
         end_epoch = min(end_epoch, start_epoch + stop_after_epochs)
 
+    # the cut index lives on the device: a host array would make every
+    # step's upload wait for the card
+    locs_dev = torch.as_tensor(locs, dtype=torch.int64).to(device)
     for epoch in range(start_epoch, end_epoch):
         # per-epoch reseeded shuffle and grid shapes
         ep_rng = np.random.default_rng(cfg.seed + epoch)
@@ -153,13 +156,15 @@ def run_pretraining(
         ep_steps, step_losses = 0, []
         t0 = time.perf_counter()
         batches = list(batch_indices(n, bs, rng=ep_rng))
-        for (len_t, len_l), group in group_by_shape(batches, t_size, l_size,
+        rows = torch.as_tensor(np.stack([c for c, _ in batches])).to(device)  # one upload
+        for (len_t, len_l), group in group_by_shape(range(len(batches)), t_size, l_size,
                                                      cfg.mask_ratio, shape_rng).items():
-            for chunk, valid in group:
+            for i in group:
+                valid = batches[i][1]
                 # the wrapped duplicates of the padded tail weigh 0
                 w = None if valid.all() else torch.as_tensor(valid, dtype=torch.float32,
                                                              device=device)
-                loss = step_fn(source.gather(locs[chunk]), len_t, len_l, w)
+                loss = step_fn(source.gather(locs_dev[rows[i]]), len_t, len_l, w)
                 ep_steps += 1
                 step_losses.append(loss)
                 if ep_steps % cfg.log_every == 0:

@@ -65,7 +65,7 @@ def test_gather_and_scatter_match_jax(dtype, rtol):
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
     rng = np.random.default_rng(0)
     gm = jm.spatial_spectral_mask(jax.random.PRNGKey(1), 6, 4, 9, 3, 6)
-    ids = np.asarray(gm.ids_keep)
+    ids = np.array(gm.ids_keep)
     x = rng.standard_normal((6, 36, 16)).astype(np.float32)
     want = np.asarray(jm.gather_tokens(jnp.asarray(x, jdt), jnp.asarray(ids)).astype(jnp.float32))
     kept = tm.gather_tokens(torch.from_numpy(x).to(tdt), torch.from_numpy(ids).long())
