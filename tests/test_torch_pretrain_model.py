@@ -218,7 +218,7 @@ def test_forward_pretrain_with_drop_path_matches_jax(case, monkeypatch):
 
     def recording(y, rate, rng, train):
         keep = jax.random.bernoulli(rng, 1.0 - rate, (y.shape[0],) + (1,) * (y.ndim - 1))
-        jax.debug.callback(lambda k: recorded.append(np.asarray(k).reshape(-1)), keep,
+        jax.debug.callback(lambda k: recorded.append(np.array(k).reshape(-1)), keep,
                            ordered=True)
         return jnp.where(keep, y / (1.0 - rate), jnp.zeros_like(y))
 
