@@ -28,16 +28,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # ctypes signatures of each library's C functions: name -> (restype, argtypes)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    "fused_block": {
-        "hsimae_fused_block": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
-        "hsimae_fused_block_max_seq": (_I, [_I]),
-    },
     "fused_block_tf32x3": {
         "hsimae_fused_block_tf32x3": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
         "hsimae_fused_block_tf32x3_max_seq": (_I, [_I]),
         "hsimae_fused_block_tf32x3_max_hidden": (_I, [_I]),
         "hsimae_fused_block_tf32x3_smem_bytes": (_I, [_I]),
         "hsimae_fused_block_tf32x3_image_bytes": (ctypes.c_longlong, [_I, _I]),
+    },
+    "fused_block_tf32x3_cluster": {
+        "hsimae_fused_block_tf32x3_cluster": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+        "hsimae_fused_block_tf32x3_cluster_max_seq": (_I, [_I]),
+        "hsimae_fused_block_tf32x3_cluster_max_hidden": (_I, [_I]),
+        "hsimae_fused_block_tf32x3_cluster_smem_bytes": (_I, [_I]),
+        "hsimae_fused_block_tf32x3_cluster_image_bytes": (ctypes.c_longlong, [_I, _I]),
+        "hsimae_fused_block_tf32x3_cluster_max_clusters": (_I, [_I]),
     },
     "fused_block_wgmma": {
         "hsimae_fused_block_wgmma": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),

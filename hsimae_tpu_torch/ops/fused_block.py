@@ -11,9 +11,12 @@ fallback), built by ``nvcc`` and bound with ``ctypes``
   which holds the 2e-5 check that one TF32 product does not); takes a
   :class:`Tf32Pack`, the weights split once into TF32 hi and lo images by
   :func:`pack_block_tf32`;
-* float32 at D 256: ``csrc/fused_block.cu``, on the CUDA cores (the 3xTF32
-  kernel's 64-row tile of residual and q/k/v does not fit in shared memory
-  at that width); takes :class:`BlockParams`;
+* float32 at D 256: ``csrc/fused_block_tf32x3_cluster.cu``, the same
+  arithmetic with attention by head group and the SwiGLU half by hidden
+  tile (the D 128 kernel's tile does not fit in shared memory at that
+  width), its weight stream shared by a cluster of ``CLUSTER_SIZE`` CTAs
+  through multicast bulk copies; takes a :class:`Tf32ClusterPack` from
+  :func:`pack_block_tf32_cluster`;
 * bfloat16: ``csrc/fused_block_wgmma.cu``, on the tensor cores (wgmma fed by
   bulk async copies through a shared-memory ring, persistent CTAs); takes a
   :class:`BlockPack`, the block's weights packed once by :func:`pack_block`.
@@ -25,8 +28,9 @@ TPU compile workaround) has no counterpart.
 * :func:`block_reference` is the plain PyTorch version of the block math.
 * :func:`fused_encoder_block` is the wrapper: on a CPU tensor it returns the
   plain version; on a CUDA tensor it launches the route's kernel or raises.
-  ``TF32X3_LAUNCHES``, ``LAUNCHES`` and ``WGMMA_LAUNCHES`` count launches of
-  the 3xTF32, the float32 CUDA-core and the bfloat16 kernel.
+  ``TF32X3_LAUNCHES``, ``TF32X3_CLUSTER_LAUNCHES`` and ``WGMMA_LAUNCHES``
+  count launches of the float32 kernels at D 64/128 and D 256 and of the
+  bfloat16 kernel.
 """
 
 from __future__ import annotations
@@ -40,14 +44,17 @@ import torch.nn.functional as F
 from hsimae_tpu_torch.ops import _build
 
 # Kernel launches since import (or since a caller last set them to 0): the
-# float32 3xTF32 kernel, the float32 CUDA-core kernel (D 256) and the
-# bfloat16 wgmma kernel.
+# float32 3xTF32 kernels at D 64/128 and at D 256, and the bfloat16 wgmma
+# kernel.
 TF32X3_LAUNCHES = 0
-LAUNCHES = 0
+TF32X3_CLUSTER_LAUNCHES = 0
 WGMMA_LAUNCHES = 0
 
 SUPPORTED_D = (64, 128, 256)
-TF32X3_D = (64, 128)  # float32 widths of the 3xTF32 kernel; D 256 runs fused_block.cu
+TF32X3_D = (64, 128)  # float32 widths of fused_block_tf32x3.cu
+CLUSTER_D = 256  # the float32 width of fused_block_tf32x3_cluster.cu
+# CTAs that share the D 256 kernel's weight stream (1, 2 or 4)
+CLUSTER_SIZE = 2
 HEAD_DIM = 16
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -66,6 +73,17 @@ _HID_TILE = 64  # hidden columns per interleaved [W1 | W3] tile
 # then W1 over W3 for the rest.
 TF32_HIDDEN_MULTIPLE = 8
 _TF32_ATOM_K = 32
+
+# Weight pack of the D 256 kernel (same hidden padding, hi and lo images):
+# atoms of 16 float32 K columns (64-byte rows, 64-byte swizzle), each a
+# whole product's output rows, in the order the kernel consumes them: per
+# head group of 64 columns, the [q | v0 | k | v1] rows (v's first 32
+# columns with q for the first warpgroup, its last 32 with k for the
+# second), then that group's K slice of Wo (all 256 output rows); per 64
+# hidden columns, the [W1 | W3] tile as in the 3xTF32 pack, then that
+# tile's K slice of W2.
+_CLUSTER_ATOM_K = 16
+_GROUP_COLS = 64
 
 
 class BlockParams(NamedTuple):
@@ -130,6 +148,17 @@ class Tf32Pack(NamedTuple):
     vecs: torch.Tensor  # float32, 1-D: as BlockPack.vecs
 
 
+class Tf32ClusterPack(NamedTuple):
+    """One D 256 block's weights as the cluster kernel reads them, built
+    once by :func:`pack_block_tf32_cluster`: as :class:`Tf32Pack`, in that
+    kernel's tile order and swizzle."""
+
+    params: BlockParams
+    hi: torch.Tensor
+    lo: torch.Tensor
+    vecs: torch.Tensor
+
+
 def padded_hidden(hidden: int, multiple: int = HIDDEN_MULTIPLE) -> int:
     return -(-hidden // multiple) * multiple
 
@@ -146,6 +175,18 @@ def swizzle128(t: torch.Tensor) -> torch.Tensor:
     return torch.gather(chunks, -2, idx).reshape(t.shape)
 
 
+def swizzle64(t: torch.Tensor) -> torch.Tensor:
+    """The 64-byte swizzle of tiles ``[..., rows, 4 c]`` whose rows are four
+    16-byte chunks of c elements (16 float32 columns): the chunk j of row r
+    moves to chunk ``j ^ (r // 2 % 4)``. It is its own inverse."""
+    rows, cols = t.shape[-2:]
+    r = torch.arange(rows, device=t.device)
+    idx = torch.arange(4, device=t.device)[None, :] ^ (r[:, None] // 2 % 4)  # [rows, 4]
+    chunks = t.reshape(*t.shape[:-1], 4, cols // 4)
+    idx = idx[..., None].expand(*chunks.shape[-3:]).expand_as(chunks)
+    return torch.gather(chunks, -2, idx).reshape(t.shape)
+
+
 def rna_tf32(t: torch.Tensor) -> torch.Tensor:
     """float32 rounded to TF32 (10 mantissa bits) to nearest, ties away from
     zero, as ``cvt.rna.tf32.f32`` rounds: the 13 low mantissa bits end zero.
@@ -155,14 +196,14 @@ def rna_tf32(t: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
-def _atoms(w: torch.Tensor, rows: int, atom_k: int) -> torch.Tensor:
+def _atoms(w: torch.Tensor, rows: int, atom_k: int, swizzle=swizzle128) -> torch.Tensor:
     """``w [N, K]`` (``[out, in]``) as swizzled tiles of ``rows`` x
-    ``atom_k`` (128 bytes a row), output-row blocks outer, K atoms inner; K
-    zero-padded to ``atom_k``."""
+    ``atom_k`` (128 bytes a row for ``swizzle128``, 64 for ``swizzle64``),
+    output-row blocks outer, K atoms inner; K zero-padded to ``atom_k``."""
     n, k = w.shape
     w = F.pad(w, (0, -k % atom_k))
     tiles = w.reshape(n // rows, rows, -1, atom_k).transpose(1, 2)
-    return swizzle128(tiles).reshape(-1)
+    return swizzle(tiles).reshape(-1)
 
 
 def _image(p: BlockParams, dtype: torch.dtype, hp: int, atom_k: int,
@@ -180,7 +221,7 @@ def _image(p: BlockParams, dtype: torch.dtype, hp: int, atom_k: int,
     parts = [_atoms(w.t().to(dtype), nt, atom_k) for w in (p.wq, p.wk, p.wv, p.wo)]
     for h0 in range(0, hp, _HID_TILE):
         h1 = min(h0 + _HID_TILE, hp)
-        cuts = (h0, h0 + (h1 - h0 + 15) // 16 * 8, h1) if split_hidden else (h0, h1)
+        cuts = _hidden_cuts(h0, h1) if split_hidden else (h0, h1)
         rows = [w[a:b] for a, b in zip(cuts, cuts[1:]) for w in (w1t, w3t)]
         parts.append(_atoms(torch.cat(rows), 2 * (h1 - h0), atom_k))
     parts.append(_atoms(w2t, nt, atom_k))
@@ -219,15 +260,59 @@ def pack_block_tf32(p: BlockParams) -> Tf32Pack:
     return Tf32Pack(p, hi, rna_tf32(image - hi), _vecs(p, hp))
 
 
-def kernel_weights(p: BlockParams, dtype: torch.dtype) -> BlockParams | BlockPack | Tf32Pack:
+def _hidden_cuts(h0: int, h1: int) -> tuple:
+    """Row cuts of the [W1 | W3] tile of hidden columns h0:h1 between the
+    3xTF32 kernels' two warpgroups: the first takes ceil8((h1 - h0) / 2)."""
+    return h0, h0 + (h1 - h0 + 15) // 16 * 8, h1
+
+
+def _cluster_image(p: BlockParams, hp: int) -> torch.Tensor:
+    """The float32 image of the D 256 kernel's pack (order above), the hidden
+    axis zero-padded to ``hp``."""
+    pad = hp - p.w1.shape[1]
+    wq, wk, wv, wo = (w.t() for w in (p.wq, p.wk, p.wv, p.wo))  # [out, in]
+    w1t = F.pad(p.w1.t(), (0, 0, 0, pad))  # [hp, d]
+    w3t = F.pad(p.w3.t(), (0, 0, 0, pad))
+    w2t = F.pad(p.w2.t(), (0, pad))  # [d, hp]
+    g, half, k = _GROUP_COLS, _GROUP_COLS // 2, _CLUSTER_ATOM_K
+    parts = []
+    for c0 in range(0, p.wq.shape[0], g):
+        parts += [torch.cat([wq[c0:c0 + g], wv[c0:c0 + half], wk[c0:c0 + g], wv[c0 + half:c0 + g]]),
+                  wo[:, c0:c0 + g]]
+    for h0 in range(0, hp, _HID_TILE):
+        cuts = _hidden_cuts(h0, min(h0 + _HID_TILE, hp))
+        parts += [torch.cat([w[a:b] for a, b in zip(cuts, cuts[1:]) for w in (w1t, w3t)]),
+                  w2t[:, h0:cuts[-1]]]
+    return torch.cat([_atoms(w.float(), w.shape[0], k, swizzle64) for w in parts]).contiguous()
+
+
+@torch.no_grad()
+def pack_block_tf32_cluster(p: BlockParams) -> Tf32ClusterPack:
+    """Pack one D 256 block for the cluster kernel, on the weights' device:
+    the float32 image in that kernel's order (above), K atoms of 16 columns
+    with the 64-byte swizzle, the hidden axis zero-padded to a multiple of
+    8, split into TF32 ``hi`` and ``lo`` as :func:`pack_block_tf32` does.
+    Done once per model."""
+    hp = padded_hidden(p.w1.shape[-1], TF32_HIDDEN_MULTIPLE)
+    image = _cluster_image(p, hp)
+    hi = rna_tf32(image)
+    return Tf32ClusterPack(p, hi, rna_tf32(image - hi), _vecs(p, hp))
+
+
+def kernel_weights(p: BlockParams, dtype: torch.dtype) -> BlockParams | BlockPack | Tf32Pack | Tf32ClusterPack:
     """The weights in the form the kernel of stream ``dtype`` at the
     block's width takes: a :class:`BlockPack` for bfloat16, a
-    :class:`Tf32Pack` for float32 at D 64 and 128, and the
-    :class:`BlockParams` themselves for float32 at D 256."""
+    :class:`Tf32Pack` for float32 at D 64 and 128, a
+    :class:`Tf32ClusterPack` for float32 at D 256. At a width no kernel
+    takes, the :class:`BlockParams` themselves (the CPU's plain version
+    runs them; a CUDA tensor raises)."""
     if dtype == torch.bfloat16:
         return pack_block(p)
-    if p.wq.shape[0] in TF32X3_D:
+    d = p.wq.shape[0]
+    if d in TF32X3_D:
         return pack_block_tf32(p)
+    if d == CLUSTER_D:
+        return pack_block_tf32_cluster(p)
     return p
 
 
@@ -300,25 +385,6 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _launch(x: torch.Tensor, p: BlockParams, num_heads: int) -> torch.Tensor:
-    """The float32 CUDA-core kernel (D 256)."""
-    global LAUNCHES
-    lib = _build.load_library("fused_block")
-    _check(x, p, num_heads, lib.hsimae_fused_block_max_seq(x.shape[-1]))
-    m, s, d = x.shape
-    out = torch.empty_like(x)
-    if m == 0:
-        return out
-    ptrs = (ctypes.c_void_p * len(p))(*(t.data_ptr() for t in p))
-    with torch.cuda.device(x.device):
-        rc = lib.hsimae_fused_block(x.data_ptr(), out.data_ptr(), ptrs, m, s, d,
-                                    p.w1.shape[-1], num_heads, _stream(x))
-    if rc != 0:
-        raise RuntimeError(f"fused block kernel launch failed: cudaError_t {rc}")
-    LAUNCHES += 1
-    return out
-
-
 def _launch_wgmma(x: torch.Tensor, pack: BlockPack, num_heads: int) -> torch.Tensor:
     """The bfloat16 tensor-core kernel."""
     global WGMMA_LAUNCHES
@@ -375,7 +441,37 @@ def _launch_tf32x3(x: torch.Tensor, pack: Tf32Pack, num_heads: int) -> torch.Ten
     return out
 
 
-def fused_encoder_block(x: torch.Tensor, p: BlockParams | BlockPack | Tf32Pack,
+def _launch_tf32x3_cluster(x: torch.Tensor, pack: Tf32ClusterPack, num_heads: int) -> torch.Tensor:
+    """The float32 3xTF32 tensor-core kernel at D 256, its weight stream
+    shared by clusters of ``CLUSTER_SIZE`` CTAs."""
+    global TF32X3_CLUSTER_LAUNCHES
+    lib = _build.load_library("fused_block_tf32x3_cluster")
+    d = x.shape[-1]
+    _check(x, pack.params, num_heads, lib.hsimae_fused_block_tf32x3_cluster_max_seq(d))
+    hp = padded_hidden(pack.params.w1.shape[-1], TF32_HIDDEN_MULTIPLE)
+    if hp > lib.hsimae_fused_block_tf32x3_cluster_max_hidden(d):
+        raise ValueError(f"unsupported padded hidden width {hp} at D={d}")
+    n = lib.hsimae_fused_block_tf32x3_cluster_image_bytes(d, hp) // 4
+    for name, t, numel in (("hi", pack.hi, n), ("lo", pack.lo, n), ("vecs", pack.vecs, 9 * d + 2 * hp)):
+        if t.dtype != torch.float32 or t.device != x.device or not t.is_contiguous() \
+                or t.numel() != numel or t.data_ptr() % 16:
+            raise ValueError(f"pack {name} must be a contiguous, 16-byte aligned float32 tensor "
+                             f"of {numel} on {x.device}")
+    m, s, _ = x.shape
+    out = torch.empty_like(x)
+    if m == 0:
+        return out
+    with torch.cuda.device(x.device):
+        rc = lib.hsimae_fused_block_tf32x3_cluster(
+            x.data_ptr(), out.data_ptr(), pack.hi.data_ptr(), pack.lo.data_ptr(),
+            pack.vecs.data_ptr(), m, s, d, hp, num_heads, CLUSTER_SIZE, _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"fused block 3xTF32 cluster kernel launch failed: cudaError_t {rc}")
+    TF32X3_CLUSTER_LAUNCHES += 1
+    return out
+
+
+def fused_encoder_block(x: torch.Tensor, p: BlockParams | BlockPack | Tf32Pack | Tf32ClusterPack,
                         num_heads: int) -> torch.Tensor:
     """Apply one transformer block to ``[M, S, D]`` sequences.
 
@@ -383,8 +479,8 @@ def fused_encoder_block(x: torch.Tensor, p: BlockParams | BlockPack | Tf32Pack,
     launches, on the current stream (no synchronisation), the kernel of the
     route fixed by dtype and width, with the weights in the form
     :func:`kernel_weights` gives: float32 at D 64 and 128 the 3xTF32 wgmma
-    kernel (a :class:`Tf32Pack`), float32 at D 256 the CUDA-core kernel
-    (:class:`BlockParams`), bfloat16 the wgmma kernel (a
+    kernel (a :class:`Tf32Pack`), float32 at D 256 the cluster kernel (a
+    :class:`Tf32ClusterPack`), bfloat16 the wgmma kernel (a
     :class:`BlockPack`). Anything else raises."""
     params = p if isinstance(p, BlockParams) else p.params
     if x.device.type == "cpu":
@@ -397,11 +493,16 @@ def fused_encoder_block(x: torch.Tensor, p: BlockParams | BlockPack | Tf32Pack,
         if not isinstance(p, BlockPack):
             raise TypeError("the bfloat16 kernel takes packed weights: pass pack_block(params)")
         return _launch_wgmma(x, p, num_heads)
-    if x.dim() == 3 and x.shape[-1] in TF32X3_D:
+    d = x.shape[-1] if x.dim() == 3 else None
+    if d in TF32X3_D:
         if not isinstance(p, Tf32Pack):
             raise TypeError("the float32 kernel at D 64 and 128 takes packed weights: "
                             "pass pack_block_tf32(params)")
         return _launch_tf32x3(x, p, num_heads)
-    if not isinstance(p, BlockParams):
-        raise TypeError("the float32 kernel at D 256 takes BlockParams")
-    return _launch(x, p, num_heads)
+    if d == CLUSTER_D:
+        if not isinstance(p, Tf32ClusterPack):
+            raise TypeError("the float32 kernel at D 256 takes packed weights: "
+                            "pass pack_block_tf32_cluster(params)")
+        return _launch_tf32x3_cluster(x, p, num_heads)
+    _check(x, params, num_heads, max_seq=0)  # raises: no float32 kernel takes this input
+    raise ValueError(f"no float32 kernel takes x of shape {tuple(x.shape)}")

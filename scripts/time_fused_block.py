@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Time the fused-block kernels of one checkout of the port by two methods.
 
-    python3 scripts/time_fused_block.py [--root DIR] [--label NAME]
+    python3 scripts/time_fused_block.py [--root DIR] [--label NAME] [--width 128|256]
+                                        [--clusters 2[,4,...]]
 
 Imports ``hsimae_tpu_torch`` from ``--root`` (default: this repo), so the
 same timer can read an older checkout of the port, unpacked into a
 git-ignored directory, beside this one: run old, new, new, old in one
 session on one card and compare within it. For float32 and bfloat16 at the
-HSIMAE-B main-path shapes of batch 4096 (the same seeded inputs in every
-checkout), it prints one JSON line per case with the kernel's time by
+main-path shapes of batch 4096 of HSIMAE-B (``--width 128``: D 128, 8
+heads, SwiGLU 344) or HSIMAE-L (``--width 256``: D 256, 16 heads, SwiGLU
+684), the same seeded inputs in every checkout, it prints one JSON line per
+case with the kernel's time by
 
 - ``single_call_ms``: CUDA events around each single call, the median of
   40 (the wrapper's host time falls inside the events and varies by several
@@ -18,9 +21,11 @@ checkout), it prints one JSON line per case with the kernel's time by
 
 then a last line with the card's name and power limit. Each kernel gets its
 weights in the form that checkout's wrapper takes: ``kernel_weights`` where
-the checkout has it (the float32 3xTF32 pack, the bfloat16 pack), else
-``pack_block`` for bfloat16 and ``BlockParams`` for float32. Needs a CUDA
-card.
+the checkout has it (the float32 3xTF32 packs, the bfloat16 pack), else
+``pack_block`` for bfloat16 and ``BlockParams`` for float32. Where the
+checkout's float32 kernel at D 256 shares its weight stream across a
+cluster of CTAs (``fused_block.CLUSTER_SIZE``), float32 at that width is
+timed once per size in ``--clusters``. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -32,8 +37,12 @@ import subprocess
 import sys
 from pathlib import Path
 
-D, HEADS, HIDDEN = 128, 8, 344
-SHAPES = {"blocks_1": (16384, 9, D), "blocks_2": (36864, 4, D), "fusion": (4096, 36, D)}
+MODELS = {128: ("HSIMAE-B", 8, 344), 256: ("HSIMAE-L", 16, 684)}  # width: (model, heads, hidden)
+
+
+def shapes(d: int) -> dict:
+    """[M, S, D] of the blocks_1, blocks_2 and fusion launches at batch 4096."""
+    return {"blocks_1": (16384, 9, d), "blocks_2": (36864, 4, d), "fusion": (4096, 36, d)}
 
 
 def single_call_ms(fn, iters: int = 40, warmup: int = 2) -> float:
@@ -75,7 +84,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--label", default="")
+    ap.add_argument("--width", type=int, choices=sorted(MODELS), default=128)
+    ap.add_argument("--clusters", default="2",
+                    help="comma-separated cluster sizes for float32 at D 256 (1, 2, 4)")
     args = ap.parse_args()
+    d, (model, heads, hidden) = args.width, MODELS[args.width]
     sys.path.insert(0, str(Path(args.root).resolve()))
     import torch
 
@@ -92,9 +105,9 @@ def main() -> int:
         def vec(n, base=0.0):
             return base + 0.1 * torch.randn(n, generator=gen)
 
-        p = fb.BlockParams(vec(D, 1.0), vec(D), w(D, D), vec(D), w(D, D), vec(D), w(D, D), vec(D),
-                           w(D, D), vec(D), vec(D, 1.0), vec(D), w(D, HIDDEN), vec(HIDDEN),
-                           w(D, HIDDEN), vec(HIDDEN), w(HIDDEN, D), vec(D))
+        p = fb.BlockParams(vec(d, 1.0), vec(d), w(d, d), vec(d), w(d, d), vec(d), w(d, d), vec(d),
+                           w(d, d), vec(d), vec(d, 1.0), vec(d), w(d, hidden), vec(hidden),
+                           w(d, hidden), vec(hidden), w(hidden, d), vec(d))
         return fb.BlockParams(*(t.cuda() for t in p))
 
     def kernel_weights(p, dtype):
@@ -103,18 +116,27 @@ def main() -> int:
         return fb.pack_block(p) if hasattr(fb, "pack_block") and dtype == torch.bfloat16 else p
 
     gen = torch.Generator().manual_seed(0)
+    clustered = d == 256 and hasattr(fb, "CLUSTER_SIZE")
+    default_cluster = fb.CLUSTER_SIZE if clustered else None
     for dtype in (torch.float32, torch.bfloat16):
-        for name, (m, s, d) in SHAPES.items():
+        for name, (m, s, _) in shapes(d).items():
             p = weights(gen)
             w = kernel_weights(p, dtype)
             x = torch.randn(m, s, d, generator=gen).to("cuda", dtype)
-            with torch.inference_mode():
-                run = lambda: fb.fused_encoder_block(x, w, HEADS)  # noqa: E731
-                row = {"label": args.label, "block": name, "shape": [m, s, d],
-                       "dtype": str(dtype).removeprefix("torch."),
-                       "single_call_ms": single_call_ms(run),
-                       "back_to_back_ms": back_to_back_ms(run)}
-            print(json.dumps(row), flush=True)
+            sizes = [int(c) for c in args.clusters.split(",")] \
+                if clustered and dtype == torch.float32 else [None]
+            for cluster in sizes:
+                if cluster is not None:
+                    fb.CLUSTER_SIZE = cluster
+                with torch.inference_mode():
+                    run = lambda: fb.fused_encoder_block(x, w, heads)  # noqa: E731
+                    row = {"label": args.label, "model": model, "block": name,
+                           "shape": [m, s, d], "dtype": str(dtype).removeprefix("torch."),
+                           "cluster": cluster, "single_call_ms": single_call_ms(run),
+                           "back_to_back_ms": back_to_back_ms(run)}
+                print(json.dumps(row), flush=True)
+            if clustered:
+                fb.CLUSTER_SIZE = default_cluster
             del x, p, w
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
