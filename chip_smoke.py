@@ -11,13 +11,14 @@ Phases, each of a fixed size; any failure exits non-zero:
 3. kernels against plain version: the fused-block kernels and
    ``block_reference`` on the same seeded inputs, each route with the
    weights ``kernel_weights`` gives it: float32 at D 64 and 128 on the
-   3xTF32 wgmma kernel (TF32 hi/lo pack), float32 at D 256 on the CUDA-core
-   kernel, bfloat16 on the bf16 wgmma kernel (bf16 pack), at the HSIMAE-B
-   shapes (M cut to 4096) plus D=64 and D=256; then, at the full batch-4096
-   shapes the main path gives the kernels (and the D 256 shape for the
-   CUDA-core kernel), compared again and timed with CUDA events beside the
-   plain version and the port's Block modules (cuBLAS products), one JSON
-   line per case;
+   3xTF32 wgmma kernel (TF32 hi/lo pack), float32 at D 256 on the 3xTF32
+   cluster kernel (its own hi/lo pack), bfloat16 on the bf16 wgmma kernel
+   (bf16 pack), at the HSIMAE-B shapes (M cut to 4096) plus D=64 and D=256
+   (float32 at D 256 also at S 64, the longest, and at a tile count that
+   leaves a cluster with an empty CTA); then, at the full batch-4096 shapes
+   the main paths give the kernels (HSIMAE-B and HSIMAE-L, both dtypes),
+   compared again and timed with CUDA events beside the plain version and
+   the port's Block modules (cuBLAS products), one JSON line per case;
 4. main path, float32: ``hsimae_tpu_torch.cli.evaluate.main`` classifies a
    145x145x200 synthetic scene (GWPCA to 32 bands) with HSIMAE-B, seeded
    random weights, batch 4096. The 3xTF32 kernel must launch 21 times per
@@ -30,6 +31,12 @@ Phases, each of a fixed size; any failure exits non-zero:
    blocks all run ``block_reference`` (the kernel's own semantics);
 6. warm batch loops (model built once): kernel against Block modules, in
    both dtypes;
+11. main path at HSIMAE-L's width (D 256, 16 heads, SwiGLU 684, depth 12,
+   s_depth 9), full width and depth: phases 4-6 again with ``--model
+   HSIMAE-L`` on the same scene: float32 on the 3xTF32 cluster kernel (21
+   launches a batch, the others never; map against the Block modules),
+   bfloat16 on the wgmma kernel (21 a batch; map against
+   ``block_reference``), warm loops and ``max_memory_allocated``;
 8. pretrain steps, card against CPU: three float32 HSIMAE-B steps (batch
    64, one seeded init, injected draws on both kept grids) on the card and
    the same three on the CPU; each loss within 1e-4 relative, the final
@@ -50,6 +57,8 @@ Phases, each of a fixed size; any failure exits non-zero:
 7. (last) a ``kernels`` JSON line, with each kernel's launches on each path
    (counts set to 0 just before the path), the card's name and power limit,
    then ``{"ok": true, "device": {...}}``.
+
+Phases run in the order 1-6, 11, 8-10, 7.
 """
 
 from __future__ import annotations
@@ -67,29 +76,40 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # f32 without tensor cores
 PEAK_TF32 = 495e12  # the 3xTF32 kernel does three TF32 products per f32 product
 HBM_BYTES_PER_S = 3.35e12
 
-# HSIMAE-B: D 128, 8 heads, SwiGLU hidden 344; [M, S] per block stack at batch 4096
+# HSIMAE-B: D 128, 8 heads, SwiGLU hidden 344; HSIMAE-L: D 256, 16 heads, 684
 D_B, HEADS_B, HID_B = 128, 8, 344
+HIDDEN = {64: 172, D_B: HID_B, 256: 684}  # SwiGLU hidden width by model width
 BATCH = 4096
-MAIN_SHAPES = {  # name: ([M, S, D], blocks per batch)
-    "blocks_1": ((BATCH * 4, 9, D_B), 9),
-    "blocks_2": ((BATCH * 9, 4, D_B), 9),
-    "blocks": ((BATCH, 36, D_B), 3),
-}
+
+
+def main_shapes(d: int) -> dict:
+    """name: ([M, S, D], blocks per batch) of the encoder stacks at batch 4096."""
+    return {"blocks_1": ((BATCH * 4, 9, d), 9), "blocks_2": ((BATCH * 9, 4, d), 9),
+            "blocks": ((BATCH, 36, d), 3)}
+
+
+MAIN_SHAPES = {"HSIMAE-B": main_shapes(D_B), "HSIMAE-L": main_shapes(256)}
 CHECK_SHAPES = [  # (M, S, D, hidden); M cut to 4096 rows
     (4096, 9, 128, 344), (4096, 4, 128, 344), (4096, 36, 128, 344),
     (4096, 9, 64, 172), (4096, 36, 256, 684),
+    (4095, 9, 256, 684),  # 585 row tiles: the last cluster of 2 pairs a tile with an empty CTA
 ]
+F32_CHECK_SHAPES = [(449, 64, 256, 684)]  # the longest S at D 256 (the bf16 kernel takes 40)
 TOL = {"float32": 2e-5, "bfloat16": 5e-2}  # |kernel - ref| <= tol * max(1, |ref|)
 # the kernels, by route (stream dtype and width): name -> (dtype, source, launch counter)
 KERNELS = {
     "fused_block_tf32x3": ("float32", "hsimae_tpu_torch/ops/csrc/fused_block_tf32x3.cu",
                            "TF32X3_LAUNCHES"),
-    "fused_block": ("float32", "hsimae_tpu_torch/ops/csrc/fused_block.cu", "LAUNCHES"),
+    "fused_block_tf32x3_cluster": ("float32",
+                                   "hsimae_tpu_torch/ops/csrc/fused_block_tf32x3_cluster.cu",
+                                   "TF32X3_CLUSTER_LAUNCHES"),
     "fused_block_wgmma": ("bfloat16", "hsimae_tpu_torch/ops/csrc/fused_block_wgmma.cu",
                           "WGMMA_LAUNCHES"),
 }
-MAIN_KERNEL = {"float32": "fused_block_tf32x3", "bfloat16": "fused_block_wgmma"}  # at D 128
-D256_SHAPE = (4096, 36, 256)  # where the CUDA-core kernel is timed: HSIMAE-L's fusion blocks
+TF32X3_KERNELS = ("fused_block_tf32x3", "fused_block_tf32x3_cluster")  # read against 3xTF32
+MAIN_KERNEL = {"float32": "fused_block_tf32x3", "bfloat16": "fused_block_wgmma"}  # HSIMAE-B
+MAIN_KERNELS = {"HSIMAE-B": MAIN_KERNEL,
+                "HSIMAE-L": {"float32": "fused_block_tf32x3_cluster", "bfloat16": "fused_block_wgmma"}}
 
 SCENE_ARGV = ["--synthetic", "--synthetic-size", "145", "--synthetic-bands", "200",
               "--synthetic-classes", "16", "--num-classes", "17",
@@ -151,11 +171,16 @@ def kernel_of(dname: str, d: int) -> str:
 
     if dname == "bfloat16":
         return "fused_block_wgmma"
-    return "fused_block_tf32x3" if d in TF32X3_D else "fused_block"
+    return "fused_block_tf32x3" if d in TF32X3_D else "fused_block_tf32x3_cluster"
 
 
 def launch_counts(fb) -> dict:
     return {name: getattr(fb, counter) for name, (_, _, counter) in KERNELS.items()}
+
+
+def reset_counts(fb) -> None:
+    for _, _, counter in KERNELS.values():
+        setattr(fb, counter, 0)
 
 
 def weight_bytes(w) -> int:
@@ -250,7 +275,7 @@ def bounds(fb, dname: str, kernel: str, m: int, s: int, d: int, hid: int, esize:
         bound = max(t_ops, f32_bytes / HBM_BYTES_PER_S * 1e3)
         by = "operations" if t_ops >= f32_bytes / HBM_BYTES_PER_S * 1e3 else "bytes"
         extra = {"gflop": flops / 1e9, "mbytes": f32_bytes / 1e6}
-        if kernel == "fused_block_tf32x3":
+        if kernel in TF32X3_KERNELS:
             t3 = 3 * flops / PEAK_TF32 * 1e3
             extra.update(bound_3xtf32_ms=max(t3, t_bytes),
                          bound_3xtf32_by="operations" if t3 >= t_bytes else "bytes",
@@ -261,12 +286,13 @@ def bounds(fb, dname: str, kernel: str, m: int, s: int, d: int, hid: int, esize:
             {"gflop": flops / 1e9, "mbytes": nbytes / 1e6})
 
 
-def l2_weight_mb(kernel: str, m: int, s: int, d: int, w):
-    """Weight bytes a launch pulls from L2: the whole pack once per row tile."""
-    if kernel == "fused_block":
-        return None  # streamed from L2 per product into registers: not counted
-    rows = 64 if kernel == "fused_block_tf32x3" or d > 128 else 128
+def l2_weight_mb(fb, kernel: str, m: int, s: int, d: int, w):
+    """Weight bytes a launch pulls from L2: the whole pack once per row tile,
+    or, for the cluster kernel, once per cluster of row tiles."""
+    rows = 64 if kernel in TF32X3_KERNELS or d > 128 else 128
     tiles = -(-m // (rows // s))
+    if kernel == "fused_block_tf32x3_cluster":
+        tiles = -(-tiles // fb.CLUSTER_SIZE)
     return tiles * weight_bytes(w) / 1e6
 
 
@@ -278,7 +304,7 @@ def time_case(fb, dtype, dname: str, name: str, shape, gen, dev, **tags):
     import torch
 
     m, s, d = shape
-    hid = HID_B if d == D_B else {64: 172, 256: 684}[d]
+    hid = HIDDEN[d]
     kernel = kernel_of(dname, d)
     p = random_block(d, hid, gen, dev)
     w = fb.kernel_weights(p, dtype)
@@ -295,10 +321,12 @@ def time_case(fb, dtype, dname: str, name: str, shape, gen, dev, **tags):
     share = {"share_of_bound": bound_ms / ms}
     if "bound_3xtf32_ms" in extra:  # the 3xTF32 kernel is read against its own arithmetic
         share = {"share_of_bound": extra["bound_3xtf32_ms"] / ms, "share_of": "bound_3xtf32_ms"}
+    if kernel == "fused_block_tf32x3_cluster":
+        tags = {**tags, "cluster": fb.CLUSTER_SIZE}
     row = {"kernel": kernel, "block": name, **tags, "shape": [m, s, d], "dtype": dname, "ms": ms,
            "plain_ms": plain_ms, "modules_ms": modules_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, **extra, **share,
-           "tflops": extra["gflop"] / ms, "l2_weight_mb": l2_weight_mb(kernel, m, s, d, w)}
+           "tflops": extra["gflop"] / ms, "l2_weight_mb": l2_weight_mb(fb, kernel, m, s, d, w)}
     print(json.dumps(row), flush=True)
     return row, err
 
@@ -377,7 +405,7 @@ def cli_pretrain(smi_line: str, fb, workdir: Path) -> dict:
     argv = PRETRAIN_ARGV + ["--checkpoint-every", str(spe)]
 
     def run(tag, extra):
-        fb.TF32X3_LAUNCHES = fb.LAUNCHES = fb.WGMMA_LAUNCHES = 0
+        reset_counts(fb)
         torch.cuda.reset_peak_memory_stats()
         _, hist = cli.main(argv + ["--workdir", str(workdir / tag)] + extra)
         torch.cuda.synchronize()
@@ -447,7 +475,7 @@ def masked_encoder_kernel(smi_line: str, fb, hsimae_model, gen, max_err: dict) -
             grid = spatial_spectral_mask(PRETRAIN_BATCH, cfg.t_size, cfg.l_size, lt, ll,
                                          torch.Generator(device="cuda").manual_seed(lt), "cuda")
             with torch.inference_mode():
-                fb.TF32X3_LAUNCHES = fb.LAUNCHES = fb.WGMMA_LAUNCHES = 0
+                reset_counts(fb)
                 loss, pred, _, _ = model.forward_pretrain(x, lt, ll, grid=grid)
                 torch.cuda.synchronize()
                 counts = launch_counts(fb)
@@ -489,6 +517,100 @@ def masked_encoder_kernel(smi_line: str, fb, hsimae_model, gen, max_err: dict) -
     return launches
 
 
+def scene_main_path(smi_line: str, fb, hsimae_model, model: str) -> dict:
+    """Phases 4-6 (HSIMAE-B) and 11 (HSIMAE-L): the 145x145 scene through
+    ``cli.evaluate.main`` at ``model``'s full width and depth, float32 then
+    bfloat16, each run with the counts set to 0 just before it: 21 launches
+    a batch of the dtype's kernel and none of the others, a sane map and
+    finite metrics; then each map against its reference (float32: the same
+    model through the Block modules; bfloat16: every block as
+    ``block_reference``, the kernel's own semantics) on >= 99.9% of pixels,
+    and the warm batch loops through the kernel and the modules. Returns the
+    launches per kernel on this path."""
+    import torch
+    from hsimae_tpu_torch.cli import evaluate as cli_evaluate
+    from hsimae_tpu_torch.config import EvalConfig
+    from hsimae_tpu_torch.train.evaluate import build_classifier, predict_scene
+
+    launches = dict.fromkeys(KERNELS, 0)
+    results = {}
+    for dname, argv in MAIN_ARGV.items():
+        argv = argv + ["--model", model]
+        own = MAIN_KERNELS[model][dname]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(fb)
+        t0 = time.perf_counter()
+        res = cli_evaluate.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts(fb)
+        peak = torch.cuda.max_memory_allocated()
+        args = cli_evaluate.build_parser().parse_args(argv)
+        n_pix = args.synthetic_size ** 2
+        n_batches = math.ceil(n_pix / args.batch_size)
+        if counts != {k: 21 * n_batches * (k == own) for k in KERNELS}:
+            fail(f"{model} {dname} main path launched {counts}, expected {21 * n_batches} of "
+                 f"{own} only")
+        launches[own] += counts[own]
+        pred = res.pred_map
+        if pred.shape != (args.synthetic_size, args.synthetic_size) or pred.min() < 1 \
+                or pred.max() >= args.num_classes:
+            fail(f"bad {model} {dname} prediction map: shape {pred.shape}, "
+                 f"labels {pred.min()}..{pred.max()}")
+        m = res.metrics
+        if not all(math.isfinite(v) for v in (m.oa, m.aa, m.kappa)):
+            fail(f"non-finite {model} {dname} metrics")
+        results[dname] = (args, res, wall, n_pix, n_batches, counts[own], peak)
+
+    for dname, (args, res, wall, n_pix, n_batches, n_launch, peak) in results.items():
+        scene, _, mcfg = cli_evaluate.prepare(args)
+        ecfg = EvalConfig(batch_size=args.batch_size)
+
+        def run(use_kernel: bool, blocks_by_reference: bool = False):
+            """The scene through a model built once: (map, warm predict seconds)."""
+            clf = build_classifier(None, mcfg.replace(use_kernel=use_kernel), args.num_classes,
+                                   device="cuda", seed=args.seed)
+            orig = hsimae_model.fused_encoder_block
+            if blocks_by_reference:  # every block as block_reference, nothing else changed
+                hsimae_model.fused_encoder_block = lambda x, w, h: fb.block_reference(
+                    x, w if isinstance(w, fb.BlockParams) else w.params, h)
+            try:
+                predict_scene(clf, scene, ecfg)  # first call: the kernel layout of the weights
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = predict_scene(clf, scene, ecfg)
+                torch.cuda.synchronize()
+            finally:
+                hsimae_model.fused_encoder_block = orig
+            return out, time.perf_counter() - t
+
+        modules_map, modules_s = run(False)
+        kernel_map, kernel_s = run(True)
+        if dname == "float32":  # the Block modules compute the same f32 block
+            ref_map, ref_name = modules_map, "block_modules"
+        else:  # bf16: the kernel's semantics (residual rounded to bf16), block by block
+            ref_map, ref_name = run(True, blocks_by_reference=True)[0], "block_reference"
+        pred = res.pred_map
+        agree = float((ref_map == pred).mean())
+        print(json.dumps({"main_path": "cli.evaluate", "model": model, "dtype": dname,
+                          "pixels": n_pix, "batches": n_batches,
+                          "kernel": MAIN_KERNELS[model][dname], "launches": n_launch,
+                          "wall_s": wall, "pixels_per_s": n_pix / wall,
+                          "max_memory_allocated_bytes": peak,
+                          "warm_predict_kernel_s": kernel_s, "warm_predict_modules_s": modules_s,
+                          "warm_kernel_pixels_per_s": n_pix / kernel_s,
+                          "warm_modules_pixels_per_s": n_pix / modules_s,
+                          "reference": ref_name, "agreement": agree,
+                          "repeat_equal": bool((kernel_map == pred).all()),
+                          "card": smi_line}), flush=True)
+        if agree < MIN_AGREEMENT:
+            fail(f"{model} {dname} prediction map agrees with {ref_name} on {agree:.5f} of "
+                 f"pixels (< {MIN_AGREEMENT})")
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -497,12 +619,9 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
-    from hsimae_tpu_torch.cli import evaluate as cli_evaluate
-    from hsimae_tpu_torch.config import EvalConfig
     from hsimae_tpu_torch.models import hsimae as hsimae_model
     from hsimae_tpu_torch.ops import _build
     from hsimae_tpu_torch.ops import fused_block as fb
-    from hsimae_tpu_torch.train.evaluate import build_classifier, predict_scene
 
     # ---- 1. device ----
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -519,10 +638,15 @@ def main() -> int:
         for line in _build.build_log(name).splitlines():
             if "Used " in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
-    for name, widths in (("fused_block_wgmma", (64, 128, 256)), ("fused_block_tf32x3", (64, 128))):
+    for name, widths in (("fused_block_wgmma", (64, 128, 256)), ("fused_block_tf32x3", (64, 128)),
+                         ("fused_block_tf32x3_cluster", (256,))):
         smem = getattr(_build.load_library(name), f"hsimae_{name}_smem_bytes")
         print(f"  {name} dynamic shared memory per CTA: "
               + ", ".join(f"D {d}: {smem(d)} B" for d in widths), flush=True)
+    fits = _build.load_library("fused_block_tf32x3_cluster").hsimae_fused_block_tf32x3_cluster_max_clusters
+    print("  fused_block_tf32x3_cluster resident clusters (cudaOccupancyMaxActiveClusters): "
+          + ", ".join(f"of {c}: {fits(c)}" for c in (1, 2, 4))
+          + f"; the wrapper's cluster size: {fb.CLUSTER_SIZE}", flush=True)
 
     # ---- 3. kernels against plain version ----
     dev = torch.device("cuda")
@@ -530,106 +654,42 @@ def main() -> int:
     dnames = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
     max_err = dict.fromkeys(KERNELS, 0.0)
 
-    for dtype, dname in dnames.items():
-        for m, s, d, hid in CHECK_SHAPES:
-            p = random_block(d, hid, gen, dev)
-            x = torch.randn(m, s, d, generator=gen).to(dev, dtype)
-            kernel = kernel_of(dname, d)
-            before = launch_counts(fb)
-            got = fb.fused_encoder_block(x, fb.kernel_weights(p, dtype), d // 16)
-            after = launch_counts(fb)
-            if {k: after[k] - before[k] for k in KERNELS} != {k: int(k == kernel) for k in KERNELS}:
-                fail(f"{dname} at D {d} did not launch {kernel} once: {before} -> {after}")
-            err = compare(got, fb.block_reference(x, p, d // 16), dname,
-                          {"kernel": kernel, "shape": [m, s, d], "dtype": dname})
-            max_err[kernel] = max(max_err[kernel], err)
+    checks = [(dtype, dname, shape) for dtype, dname in dnames.items() for shape in CHECK_SHAPES]
+    checks += [(torch.float32, "float32", shape) for shape in F32_CHECK_SHAPES]
+    for dtype, dname, (m, s, d, hid) in checks:
+        p = random_block(d, hid, gen, dev)
+        x = torch.randn(m, s, d, generator=gen).to(dev, dtype)
+        kernel = kernel_of(dname, d)
+        before = launch_counts(fb)
+        got = fb.fused_encoder_block(x, fb.kernel_weights(p, dtype), d // 16)
+        after = launch_counts(fb)
+        if {k: after[k] - before[k] for k in KERNELS} != {k: int(k == kernel) for k in KERNELS}:
+            fail(f"{dname} at D {d} did not launch {kernel} once: {before} -> {after}")
+        err = compare(got, fb.block_reference(x, p, d // 16), dname,
+                      {"kernel": kernel, "shape": [m, s, d], "dtype": dname})
+        max_err[kernel] = max(max_err[kernel], err)
 
+    # per batch of each main path's model: (kernel, model) -> summed times of its 21 launches
     keys = ("ms", "plain_ms", "modules_ms", "bound_ms", "bound_3xtf32_ms")
-    per_batch = {k: dict.fromkeys(keys, 0.0) for k in MAIN_KERNEL.values()}
+    per_batch = {(k, model): dict.fromkeys(keys, 0.0)
+                 for model, own in MAIN_KERNELS.items() for k in own.values()}
     bound_kinds = {k: set() for k in KERNELS}
-    d256 = {}
-    cases = [(dtype, dname, name, shape, count) for dtype, dname in dnames.items()
-             for name, (shape, count) in MAIN_SHAPES.items()]
-    cases.append((torch.float32, "float32", "fusion_L", D256_SHAPE, 0))
-    for dtype, dname, name, shape, count in cases:
-        row, err = time_case(fb, dtype, dname, name, shape, gen, dev)
-        max_err[row["kernel"]] = max(max_err[row["kernel"]], err)
-        bound_kinds[row["kernel"]].add(row["bound_by"])
-        if count:
-            for k in keys:
-                per_batch[row["kernel"]][k] += count * row.get(k, 0.0)
-        else:
-            d256 = row
-    torch.cuda.empty_cache()
+    for model, shapes in MAIN_SHAPES.items():
+        for dtype, dname in dnames.items():
+            for name, (shape, count) in shapes.items():
+                row, err = time_case(fb, dtype, dname, name, shape, gen, dev, model=model,
+                                     launches_per_batch=count)
+                max_err[row["kernel"]] = max(max_err[row["kernel"]], err)
+                bound_kinds[row["kernel"]].add(row["bound_by"])
+                for k in keys:
+                    per_batch[row["kernel"], model][k] += count * row.get(k, 0.0)
+            torch.cuda.empty_cache()
 
-    # ---- 4, 5. main path, float32 then bfloat16, through the CLI ----
-    launches, results = {}, {}
-    for dname, argv in MAIN_ARGV.items():
-        fb.TF32X3_LAUNCHES = fb.LAUNCHES = fb.WGMMA_LAUNCHES = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = cli_evaluate.main(argv)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = launch_counts(fb)
-        args = cli_evaluate.build_parser().parse_args(argv)
-        n_pix = args.synthetic_size ** 2
-        n_batches = math.ceil(n_pix / args.batch_size)
-        own = MAIN_KERNEL[dname]
-        if counts != {k: 21 * n_batches * (k == own) for k in KERNELS}:
-            fail(f"{dname} main path launched {counts}, expected {21 * n_batches} of {own} only")
-        launches[own] = counts[own]
-        pred = res.pred_map
-        if pred.shape != (args.synthetic_size, args.synthetic_size) or pred.min() < 1 \
-                or pred.max() >= args.num_classes:
-            fail(f"bad {dname} prediction map: shape {pred.shape}, labels {pred.min()}..{pred.max()}")
-        m = res.metrics
-        if not all(math.isfinite(v) for v in (m.oa, m.aa, m.kappa)):
-            fail(f"non-finite {dname} metrics")
-        results[dname] = (args, res, wall, n_pix, n_batches)
+    # ---- 4, 5, 6. main path, HSIMAE-B, float32 then bfloat16, through the CLI ----
+    launches = {"cli.evaluate": scene_main_path(smi_line, fb, hsimae_model, "HSIMAE-B")}
 
-    # ---- 6. the maps against their references; warm batch loops ----
-    for dname, (args, res, wall, n_pix, n_batches) in results.items():
-        scene, _, mcfg = cli_evaluate.prepare(args)
-        ecfg = EvalConfig(batch_size=args.batch_size)
-
-        def run(use_kernel: bool, blocks_by_reference: bool = False):
-            """The scene through a model built once: (map, warm predict seconds)."""
-            model = build_classifier(None, mcfg.replace(use_kernel=use_kernel), args.num_classes,
-                                     device="cuda", seed=args.seed)
-            orig = hsimae_model.fused_encoder_block
-            if blocks_by_reference:  # every block as block_reference, nothing else changed
-                hsimae_model.fused_encoder_block = lambda x, w, h: fb.block_reference(
-                    x, w if isinstance(w, fb.BlockParams) else w.params, h)
-            try:
-                predict_scene(model, scene, ecfg)  # first call: the kernel layout of the weights
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                out = predict_scene(model, scene, ecfg)
-                torch.cuda.synchronize()
-            finally:
-                hsimae_model.fused_encoder_block = orig
-            return out, time.perf_counter() - t
-
-        modules_map, modules_s = run(False)
-        kernel_map, kernel_s = run(True)
-        if dname == "float32":  # the Block modules compute the same f32 block
-            ref_map, ref_name = modules_map, "block_modules"
-        else:  # bf16: the kernel's semantics (residual rounded to bf16), block by block
-            ref_map, ref_name = run(True, blocks_by_reference=True)[0], "block_reference"
-        pred = res.pred_map
-        agree = float((ref_map == pred).mean())
-        print(json.dumps({"main_path": "cli.evaluate", "dtype": dname, "pixels": n_pix,
-                          "batches": n_batches, "launches": launches[MAIN_KERNEL[dname]],
-                          "wall_s": wall, "pixels_per_s": n_pix / wall,
-                          "warm_predict_kernel_s": kernel_s, "warm_predict_modules_s": modules_s,
-                          "warm_kernel_pixels_per_s": n_pix / kernel_s,
-                          "warm_modules_pixels_per_s": n_pix / modules_s,
-                          "reference": ref_name, "agreement": agree,
-                          "repeat_equal": bool((kernel_map == pred).all())}), flush=True)
-        if agree < MIN_AGREEMENT:
-            fail(f"{dname} prediction map agrees with {ref_name} on {agree:.5f} of pixels "
-                 f"(< {MIN_AGREEMENT})")
+    # ---- 11. main path at HSIMAE-L's width, through the CLI ----
+    launches["cli.evaluate HSIMAE-L"] = scene_main_path(smi_line, fb, hsimae_model, "HSIMAE-L")
 
     # ---- 8. pretrain steps, card against CPU (float32) ----
     pretrain_step_card_vs_cpu(smi_line)
@@ -637,35 +697,42 @@ def main() -> int:
 
     # ---- 9. pretraining through the CLI: bf16 (resumed too), then f32 ----
     cli_pretrain(smi_line, fb, Path(__file__).resolve().parent / "_smoke_runs")
+    launches["cli.pretrain"] = dict.fromkeys(KERNELS, 0)  # checked there: none
     torch.cuda.empty_cache()
 
     # ---- 10. the kernel on the masked encoder (eval-mode forward_pretrain) ----
-    masked = masked_encoder_kernel(smi_line, fb, hsimae_model, gen, max_err)
+    launches["forward_pretrain eval"] = masked_encoder_kernel(smi_line, fb, hsimae_model, gen,
+                                                              max_err)
 
     # ---- 7. result ----
-    # main-path kernels: per batch of the evaluate path (21 launches); the
-    # CUDA-core kernel serves float32 at D 256 only, off these paths:
-    # launches 0, times of one launch at HSIMAE-L's fusion shape.
-    # launches_by_path: each path with the counts set to 0 just before it
+    # times: per batch of 21 launches of the model whose evaluate path runs
+    # the kernel (HSIMAE-B for the D 128 3xTF32 kernel and the bf16 kernel,
+    # HSIMAE-L for the cluster kernel; the bf16 kernel's HSIMAE-L batch
+    # beside); launches: the evaluate paths' sum, and per path with the
+    # counts set to 0 just before it
     lines = []
     for name, (dname, source, _) in KERNELS.items():
+        by_model = {model: per_batch[name, model] for model in MAIN_SHAPES
+                    if (name, model) in per_batch}
+        times = dict(next(iter(by_model.values())))
+        if name not in TF32X3_KERNELS:
+            times.pop("bound_3xtf32_ms")
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": "hsimae_tpu/ops/fused_block.py:158", "dtype": dname,
-                 "launches": launches.get(name, 0), "max_abs_err": max_err[name],
-                 "launches_by_path": {"cli.evaluate": launches.get(name, 0), "cli.pretrain": 0,
-                                      "forward_pretrain eval": masked[name]}}
-        if name in per_batch:
-            times = dict(per_batch[name])
-            if name != "fused_block_tf32x3":
-                times.pop("bound_3xtf32_ms")
-            entry.update(times, per="batch of 21 launches", widths=[64, 128] if dname == "float32"
-                         else [64, 128, 256])
-            if name == "fused_block_tf32x3":
-                entry.update(share_of_bound=times["bound_3xtf32_ms"] / times["ms"],
-                             share_of="bound_3xtf32_ms")
-        else:
-            entry.update({k: d256[k] for k in ("ms", "plain_ms", "modules_ms", "bound_ms")},
-                         per="launch", shape=d256["shape"], widths=[256])
+                 "launches": launches["cli.evaluate"][name]
+                 + launches["cli.evaluate HSIMAE-L"][name],
+                 "max_abs_err": max_err[name],
+                 "launches_by_path": {path: n[name] for path, n in launches.items()},
+                 **times, "per": f"batch of 21 launches of {next(iter(by_model))}",
+                 "widths": {"fused_block_tf32x3": [64, 128], "fused_block_tf32x3_cluster": [256],
+                            "fused_block_wgmma": [64, 128, 256]}[name]}
+        if name in TF32X3_KERNELS:
+            entry.update(share_of_bound=times["bound_3xtf32_ms"] / times["ms"],
+                         share_of="bound_3xtf32_ms")
+        if len(by_model) > 1:
+            entry["per_batch_by_model"] = by_model
+        if name == "fused_block_tf32x3_cluster":
+            entry["cluster"] = fb.CLUSTER_SIZE
         entry["bound_by"] = "operations" if bound_kinds[name] == {"operations"} else "bytes"
         entry["library_ms"] = None
         lines.append(entry)

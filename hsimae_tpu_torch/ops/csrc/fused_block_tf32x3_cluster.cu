@@ -19,9 +19,12 @@
 // products, a_lo w_hi + a_hi w_lo + a_hi w_hi, every part rounded to TF32
 // (the weights once per model by ops/fused_block.py::pack_block_tf32_cluster,
 // the activations in registers as the A operand is loaded); the tensor
-// cores truncate as they accumulate, so each K atom's wgmmas sum into a
-// fresh partial that is added to the f32 accumulator with round-to-nearest
-// adds.
+// cores truncate as they accumulate, so no accumulator takes a long chain
+// of wgmmas: every product runs as chains of at most 4 K atoms of 16 (24
+// wgmmas) into a fresh partial, the partials added in f32 with
+// round-to-nearest adds (q/k/v and [W1 | W3]: 4 partials over K 256; a head
+// group's slice of Wo: one, the groups' sums added in order; a hidden
+// tile's slice of W2: one, the tiles' sums added the same way).
 //
 // What bounds it on an H100: operations, and the weight stream. HSIMAE-L's
 // block (SwiGLU hidden 684, padded to 688) at batch 4096 does ~233-238 GFLOP,
@@ -33,34 +36,45 @@
 // (266 KB) do not fit in 227 KB of shared memory. The design:
 //   * a CTA owns 64 rows of whole sequences (wgmma's M). Two consumer
 //     warpgroups split every product's output columns; warp w of either
-//     holds rows 16 (w % 4) .. + 15. A third warpgroup is the producer: one
-//     thread, its registers handed to the consumers with setmaxnreg;
+//     holds rows 16 (w % 4) .. + 15. Consumer thread 0 is also the weight
+//     stream's producer: while it waits for a stage to land it issues every
+//     stage that has come free. With no producer warp the CTA is 256
+//     threads, and ptxas may give each thread 255 registers, which the
+//     m64n128 accumulators need (with a producer warp or warpgroup, 9 or 12
+//     warps, ptxas held every thread to 168 and spilled);
 //   * attention runs by head group: q, k and v are computed for 4 heads (64
 //     columns) at a time into a [64, 68] buffer each, attention runs on them
 //     in f32 on the CUDA cores (one thread per row and head, logits in
-//     registers), o overwrites q, and o's K slice of Wo is accumulated in
-//     registers (m64n128 per warpgroup) before the next group; the residual
-//     is updated once all four groups are in. Shared memory: the residual
-//     [64, 260] (66.5 KB), one group's q/k/v (52 KB), the ring (96 KB);
+//     registers), o overwrites q, and o's K slice of Wo is summed in
+//     registers (m64n128 per warpgroup), then parked in the output rows in
+//     global memory (so no accumulator lives across the next group's
+//     products); the residual is updated once all four groups are in. Shared memory: a [64, 260]
+//     row tile (66.5 KB), one group's q/k/v (52 KB), the ring (96 KB);
 //   * the SwiGLU half runs by 64 hidden columns: [W1 | W3] on LN2(x) into a
 //     gate tile [64, 68] (double-buffered in the q/k/v space), then that
-//     tile's slice of W2 accumulated in registers (m64n128 per warpgroup)
-//     across the 11 hidden tiles;
-//   * A comes from registers, split into TF32 hi and lo as it is loaded,
-//     LayerNorm applied on the fly from per-row statistics; the next K
-//     atom's A is split while the current atom's wgmmas run;
-//   * B streams through a ring of six 16 KB slots: K atoms of 16 float32
-//     columns (64-byte rows, 64-byte swizzle), a hi slot and a lo slot per
-//     atom, so even the 256-row atoms of Wo and W2 (16 KB an image) leave two
-//     atoms in flight behind the one being read;
+//     tile's slice of W2 summed in registers (m64n128 per warpgroup), then
+//     added to the sum over the hidden tiles;
+//   * LayerNorm is applied once, in place, to the row tile: it holds LN1(x),
+//     then LN2(x1). The residual itself is read again from global memory
+//     for the two residual adds: x from the input, x1 from the output,
+//     where the first add also stores it;
+//   * A comes from registers, split into TF32 hi and lo as it is loaded from
+//     shared memory; the next K atom's A is split while the current atom's
+//     wgmmas run;
+//   * B streams through a ring of three 32 KB stages of K atoms of 16
+//     float32 columns (64-byte rows, 64-byte swizzle), a stage's hi tiles
+//     then its lo tiles under one pair of barriers: one atom of q/k/v, Wo or
+//     W2 (up to 256 rows, 16 KB an image), two of [W1 | W3] (128 rows), so
+//     every stage carries about one stage's worth of wgmmas and two stages
+//     stay in flight behind the one being read;
 //   * a cluster of C CTAs (2 by default, or 4) on neighbouring SMs walks the
 //     row tiles C at a time and shares the ring: each CTA's producer issues
-//     1/C of every slot as one cp.async.bulk multicast into the same slot of
-//     every CTA of the cluster, so the pack is read from L2 once per C tiles.
-//     A slot's "full" barrier expects the whole slot's bytes; its "empty"
-//     barrier counts the consumer warps of every CTA of the cluster (each
-//     releases the slot in every CTA: mapa + a remote arrive), so no CTA
-//     writes into a slot that a partner still reads. Both CTAs run the same
+//     1/C of every hi and lo tile as a cp.async.bulk multicast into the same
+//     stage of every CTA of the cluster, so the pack is read from L2 once
+//     per C tiles. A stage's "full" barrier expects the whole stage's bytes;
+//     its "empty" barrier counts the consumer warps of every CTA of the
+//     cluster (each releases the stage in every CTA: mapa + a remote
+//     arrive), so no CTA writes into a stage that a partner still reads. Both CTAs run the same
 //     number of tiles: the last group may pair a real tile with an empty
 //     one, which consumes the ring and stores nothing. The barriers are
 //     initialised and fenced before a cluster barrier, and a CTA leaves only
@@ -88,14 +102,15 @@ constexpr int kAtomK = 16;                             // f32 K columns of a 64-
 constexpr int kKA = kD / kAtomK;                       // K atoms of a D-deep product
 constexpr int kGroupKA = kGroupCols / kAtomK;          // K atoms of a group's slice of Wo
 constexpr int kHidTile = 64;                           // hidden columns per [W1 | W3] tile
-constexpr int kStages = 6;                             // ring slots (two per K atom)
-constexpr int kSlotBytes = 16384;                      // one slot: <= 256 rows x 64 bytes
+constexpr int kStages = 3;                             // ring stages, one K atom each
+constexpr int kSlotBytes = 16384;                      // one image's tile: <= 256 rows x 64 bytes
+constexpr int kStageBytes = 2 * kSlotBytes;            // an atom's hi tile, then its lo tile
 constexpr int kRows = 64;                              // rows per tile: wgmma's M
 constexpr int kMaxSeq = 64;                            // a tile holds whole sequences
 constexpr int kConsumers = 2;                          // consumer warpgroups
 constexpr int kConsumerThreads = 128 * kConsumers;
 constexpr int kConsumerWarps = kConsumerThreads / 32;
-constexpr int kThreads = kConsumerThreads + 128;       // + the producer warpgroup
+constexpr int kThreads = kConsumerThreads;            // thread 0 also produces
 constexpr int kMaxCluster = 4;
 constexpr int kMaxHidden = 4096;
 constexpr int kLD = kD + 4;                            // residual row stride (floats): 4 mod 32
@@ -104,10 +119,11 @@ constexpr int kQkvRows = 3 * kGroupCols;               // rows of a group's [q |
 constexpr int kQkvAtomBytes = kQkvRows * kAtomK * 4;   // 12 KB
 constexpr int kWideAtomBytes = kD * kAtomK * 4;        // 16 KB: Wo and W2 (256 output rows)
 constexpr int kBufQ = kRows * kLDQ * 4;                // one [64, 68] buffer
-constexpr int kXOff = kStages * kSlotBytes;
+constexpr int kXOff = kStages * kStageBytes;
 constexpr int kQkvOff = kXOff + kRows * kLD * 4;
 constexpr int kBarOff = kQkvOff + 3 * kBufQ;
-constexpr int kSmem = kBarOff + 2 * kStages * 8 + 1024;  // + slack to align the base
+constexpr int kCountOff = kBarOff + 2 * kStages * 8;   // per ring stage: warps that released it
+constexpr int kSmem = kCountOff + 4 * kStages + 1024;  // + slack to align the base
 constexpr int kMaxSmem = 232448;
 static_assert(kSmem <= kMaxSmem, "shared memory budget");
 static_assert(kHeadDim == 16, "the attention scale 0.25 assumes head dim 16");
@@ -147,18 +163,36 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
+// Whether the phase of the given parity has completed, without waiting.
+__device__ __forceinline__ bool mbar_test(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
 __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
                : "memory");
 }
 
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
 // One arrival on the barrier at the same shared offset as bar in the CTA of
-// the cluster with the given rank (this CTA too).
+// the cluster with the given rank. Its ordering is the arriving thread's
+// own (no cluster-scope release): what it orders, the consumer's reads of a
+// slot by wgmma, is complete before the arrive (wgmma.wait_group), and the
+// write it allows is a bulk copy.
 __device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t rank) {
   uint32_t remote;
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(bar), "r"(rank));
-  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];" ::"r"(remote)
-               : "memory");
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];" ::"r"(remote) : "memory");
 }
 
 // Global -> shared bulk copy into this CTA; completion counted in bytes on
@@ -207,6 +241,33 @@ template <int N>
 __device__ __forceinline__ void wg_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
 }
+
+// Built with -DHSIMAE_PHASE_CLOCKS (scripts/profile_fused_block.py), the
+// first consumer thread of every CTA adds the SM clocks it spends in each
+// phase of a tile into g_phase_clocks[phase], and those it spends waiting,
+// within the phases, into g_phase_clocks[W_*]: for a ring stage to land
+// (issuing meanwhile), for its wgmmas, at the consumers' barrier. Without it
+// PHASE_MARK and the clock of WAIT_CLOCK are empty.
+#ifdef HSIMAE_PHASE_CLOCKS
+__device__ unsigned long long g_phase_clocks[16];
+#define PHASE_MARK(k)                                                  \
+  if (threadIdx.x == 0) {                                              \
+    const long long t1_ = clock64();                                   \
+    atomicAdd(&g_phase_clocks[k], (unsigned long long)(t1_ - t0_));    \
+    t0_ = t1_;                                                         \
+  }
+#define WAIT_CLOCK(k, stmt)                                                          \
+  {                                                                                  \
+    const long long w0_ = clock64();                                                 \
+    stmt;                                                                            \
+    if (threadIdx.x == 0) atomicAdd(&g_phase_clocks[k], (unsigned long long)(clock64() - w0_)); \
+  }
+#else
+#define PHASE_MARK(k)
+#define WAIT_CLOCK(k, stmt) \
+  { stmt; }
+#endif
+enum { W_RING = 9, W_WGMMA = 10, W_BAR = 11 };
 
 // Keep the compiler from moving accumulator or A-fragment accesses across
 // wgmma issue and wait.
@@ -364,34 +425,127 @@ struct Wgmma<128> {
   }
 };
 
-// Ring position of a consumer warpgroup; both consumer warpgroups and the
-// producer walk the same sequence of slots, in every CTA of the cluster.
-struct Ring {
-  uint32_t slots;  // shared address of slot 0
-  uint32_t full;   // shared address of full barrier 0 (8 bytes apart)
-  uint32_t empty;  // shared address of empty barrier 0
+// The weight stream. The pack is a fixed sequence of ring stages (the order
+// above), streamed once per tile group; stage j of that sequence goes into
+// ring stage j % kStages. A ring stage is refilled by whichever consumer
+// warp of the CTA releases its previous contents last (a counter per ring
+// stage in shared memory says which): once the stage's "empty" barrier
+// completes (in a cluster it also counts every partner CTA's warps), that
+// warp issues this CTA's 1/csize share of the next contents' hi and lo
+// tiles, as one bulk copy each, multicast into the same stage of every CTA
+// of the cluster. So a stage is refilled as soon as it is free.
+struct Stream {
+  const uint8_t* hi;
+  const uint8_t* lo;
+  uint32_t base;  // shared address of ring stage 0; the barriers at kBarOff
+  int* released;  // per ring stage: local warps that have released it, in shared memory
+  int csize, rank;
+  int hp;         // padded hidden width
+  int nstages;    // ring stages the pack fills
+  int groups;     // tile groups this CTA streams the pack for
+
+  __device__ __forceinline__ uint32_t full(int s) const { return base + kBarOff + 8 * s; }
+  __device__ __forceinline__ uint32_t empty(int s) const {
+    return base + kBarOff + 8 * (kStages + s);
+  }
+  // bytes of stage a of the pack in one image (one K atom, or two of
+  // [W1 | W3]) and where they start in it
+  __device__ __forceinline__ int bytes(int a) const {
+    constexpr int per_group = kKA + kGroupKA, per_tile = kKA / 2 + kHidTile / kAtomK;
+    if (a < kGroups * per_group) return a % per_group < kKA ? kQkvAtomBytes : kWideAtomBytes;
+    a -= kGroups * per_group;
+    const int nfull = hp / kHidTile;  // 64-column hidden tiles: every stage 16 KB
+    if (a < nfull * per_tile) return kWideAtomBytes;
+    a -= nfull * per_tile;
+    return a < kKA / 2 ? 4 * (hp - nfull * kHidTile) * kAtomK * 4 : kWideAtomBytes;
+  }
+  __device__ __forceinline__ long long offset(int a) const {
+    constexpr int per_group = kKA + kGroupKA, per_tile = kKA / 2 + kHidTile / kAtomK;
+    constexpr long long group_bytes = kKA * kQkvAtomBytes + kGroupKA * kWideAtomBytes;
+    if (a < kGroups * per_group) {
+      const int i = a % per_group;
+      return a / per_group * group_bytes +
+             (i < kKA ? i * kQkvAtomBytes : kKA * kQkvAtomBytes + (i - kKA) * kWideAtomBytes);
+    }
+    a -= kGroups * per_group;
+    long long off = kGroups * group_bytes;
+    const int nfull = hp / kHidTile;
+    if (a < nfull * per_tile) return off + (long long)a * kWideAtomBytes;
+    a -= nfull * per_tile;
+    off += (long long)nfull * per_tile * kWideAtomBytes;
+    const int w13 = 4 * (hp - nfull * kHidTile) * kAtomK * 4;
+    return off + (a < kKA / 2 ? a * w13 : kKA / 2 * w13 + (a - kKA / 2) * kWideAtomBytes);
+  }
+  // issues stage a of the pack into ring stage s
+  __device__ __forceinline__ void issue(int s, int a) const {
+    const int n = bytes(a);
+    const long long off = offset(a);
+    const uint32_t dst = base + s * kStageBytes, bar = full(s);
+    mbar_expect_tx(bar, 2 * n);
+    if (csize == 1) {
+      bulk_load(dst, hi + off, n, bar);
+      bulk_load(dst + kSlotBytes, lo + off, n, bar);
+    } else {
+      const uint16_t mask = (uint16_t)((1u << csize) - 1);
+      const int share = n / csize, at = rank * share;
+      bulk_load_multicast(dst + at, hi + off + at, share, bar, mask);
+      bulk_load_multicast(dst + kSlotBytes + at, lo + off + at, share, bar, mask);
+    }
+  }
+};
+
+// A stage a consumer warp has taken: its shared address, ring stage and
+// phase, and which stage of the pack, in which tile group, it holds.
+struct Slot {
+  uint32_t addr;
   int stage;
   uint32_t phase;
-  int csize;  // CTAs in the cluster
-  // waits until the current slot has landed; returns its shared address and moves on
-  __device__ __forceinline__ uint32_t take() {
-    mbar_wait(full + 8 * stage, phase);
-    const uint32_t addr = slots + stage * kSlotBytes;
+  int atom, grp;
+};
+
+// Ring position of a consumer warp; every consumer warp walks the same
+// sequence of stages, in every CTA of the cluster.
+struct Ring {
+  const Stream& st;
+  int stage;
+  uint32_t phase;
+  int atom, grp;  // what the next take() holds
+  // waits until the current stage has landed and moves on
+  __device__ __forceinline__ Slot take() {
+    WAIT_CLOCK(W_RING, mbar_wait(st.full(stage), phase))
+    const Slot sl{st.base + stage * kStageBytes, stage, phase, atom, grp};
     if (++stage == kStages) {
       stage = 0;
       phase ^= 1;
     }
-    return addr;
+    if (++atom == st.nstages) {
+      atom = 0;
+      ++grp;
+    }
+    return sl;
   }
-  // one arrival per consumer warp, in every CTA of the cluster, on the empty
-  // barriers of the atom whose hi tile sat in slot s (its lo tile in the next)
-  __device__ __forceinline__ void release(int s) const {
+  // one arrival per consumer warp, in every CTA of the cluster, on the
+  // slot's empty barrier; the CTA's last warp to arrive refills the stage
+  __device__ __forceinline__ void release(const Slot& sl) const {
     __syncwarp();
     if ((threadIdx.x & 31) == 0) {
-      const int s1 = s + 1 == kStages ? 0 : s + 1;
-      for (int r = 0; r < csize; ++r) {
-        mbar_arrive_cluster(empty + 8 * s, r);
-        mbar_arrive_cluster(empty + 8 * s1, r);
+      const uint32_t bar = st.empty(sl.stage);
+      if (st.csize == 1) {
+        mbar_arrive(bar);
+      } else {
+        for (int r = 0; r < st.csize; ++r) mbar_arrive_cluster(bar, r);
+      }
+      if (atomicAdd(st.released + sl.stage, 1) == kConsumerWarps - 1) {
+        atomicExch(st.released + sl.stage, 0);
+        int a = sl.atom + kStages, g = sl.grp;
+        if (a >= st.nstages) {
+          a -= st.nstages;
+          ++g;
+        }
+        if (g < st.groups) {
+          mbar_wait(bar, sl.phase);  // every CTA's warps are done with the slot
+          st.issue(sl.stage, a);
+        }
       }
     }
   }
@@ -408,23 +562,6 @@ struct RowsA {
   }
 };
 
-// The same of LN(x), computed from the residual rows as they are read:
-// (x - mu) * inv * scale + bias, the rows' mean and 1 / sqrt(var + eps)
-// held by the thread.
-struct NormA {
-  RowsA x;
-  float mu0, inv0, mu8, inv8;
-  const float* scale;  // at column t
-  const float* bias;
-  __device__ __forceinline__ float4 at(int k0) const {
-    const float4 v = x.at(k0);
-    const float s0 = __ldg(scale + k0), s4 = __ldg(scale + k0 + 4);
-    const float b0 = __ldg(bias + k0), b4 = __ldg(bias + k0 + 4);
-    return make_float4((v.x - mu0) * inv0 * s0 + b0, (v.y - mu8) * inv8 * s0 + b0,
-                       (v.z - mu0) * inv0 * s4 + b4, (v.w - mu8) * inv8 * s4 + b4);
-  }
-};
-
 // Loads and splits the thread's A values of STEPS K steps from column k0.
 template <int STEPS, class ASrc>
 __device__ __forceinline__ void split_steps(const ASrc& a, int k0, uint32_t (&hi)[2][4],
@@ -436,88 +573,120 @@ __device__ __forceinline__ void split_steps(const ASrc& a, int k0, uint32_t (&hi
 }
 
 // One K atom's wgmma group: per K step s, a_lo B_hi, a_hi B_lo, a_hi B_hi
-// (small terms first) into d, the first overwriting it; B_hi and B_lo at
-// shared addresses b_hi and b_lo.
-template <int N, int STEPS>
+// (small terms first) into d, the first overwriting it unless ACCUMULATE;
+// B_hi and B_lo at shared addresses b_hi and b_lo.
+template <int N, int STEPS, bool ACCUMULATE = false>
 __device__ __forceinline__ void mma_steps(float (&d)[N / 2], const uint32_t (&hi)[2][4],
                                           const uint32_t (&lo)[2][4], uint32_t b_hi, uint32_t b_lo) {
   wg_fence();
 #pragma unroll
   for (int s = 0; s < STEPS; ++s) {
-    Wgmma<N>::mma(d, lo[s], sw64_desc(b_hi + 32 * s), s == 0 ? 0 : 1);
+    Wgmma<N>::mma(d, lo[s], sw64_desc(b_hi + 32 * s), s == 0 && !ACCUMULATE ? 0 : 1);
     Wgmma<N>::mma(d, hi[s], sw64_desc(b_lo + 32 * s), 1);
     Wgmma<N>::mma(d, hi[s], sw64_desc(b_hi + 32 * s), 1);
   }
   wg_commit();
 }
 
-// One K atom (STEPS K steps of 8) of a product, for this warpgroup's rows of
-// the B tiles from byte b_off, its A already split into (hi, lo): its hi and
-// lo tiles waited for, its wgmmas issued into a fresh partial, the next
-// atom's A (NEXT K steps from column k_next; none when 0) split into (nhi,
-// nlo) while they run, then the partial added to acc once they are done and
-// the atom's slots released.
-template <int N, int STEPS, int NEXT, class ASrc>
-__device__ __forceinline__ void atom(float (&acc)[N / 2], float (&part)[N / 2], Ring& ring,
-                                     uint32_t b_off, uint32_t (&hi)[2][4], uint32_t (&lo)[2][4],
-                                     const ASrc& a, int k_next, uint32_t (&nhi)[2][4],
-                                     uint32_t (&nlo)[2][4]) {
-  const int slot = ring.stage;
-  const uint32_t b_hi = ring.take() + b_off;
-  const uint32_t b_lo = ring.take() + b_off;
-  fence_regs(part);
-  mma_steps<N, STEPS>(part, hi, lo, b_hi, b_lo);
+// One K atom of a chained product (`chain`), at position POS of its ring
+// stage (a stage holds 1 or 2 atoms, atom_bytes apart): at POS 0 the next
+// stage taken; its wgmmas issued into acc (overwriting it when FIRST); then,
+// once the previous atom's wgmmas are done, the previous stage released if
+// that atom was its last, and the next atom's A (NEXT K steps from column
+// k_next; none when 0) split into the register set the previous atom read.
+template <int N, int STEPS, int NEXT, bool FIRST, int POS, class ASrc>
+__device__ __forceinline__ void chain_atom(float (&acc)[N / 2], Ring& ring, uint32_t b_off,
+                                           uint32_t atom_bytes, uint32_t (&hi)[2][4],
+                                           uint32_t (&lo)[2][4], const ASrc& a, int k_next,
+                                           uint32_t (&nhi)[2][4], uint32_t (&nlo)[2][4],
+                                           Slot& cur, Slot& prev) {
+  if constexpr (POS == 0) {
+    prev = cur;
+    cur = ring.take();
+  }
+  const uint32_t b_hi = cur.addr + b_off + POS * atom_bytes;
+  mma_steps<N, STEPS, !FIRST>(acc, hi, lo, b_hi, b_hi + kSlotBytes);
+  if constexpr (!FIRST) {
+    WAIT_CLOCK(W_WGMMA, wg_wait<1>())
+    fence_regs(nhi);
+    fence_regs(nlo);
+    if constexpr (POS == 0) ring.release(prev);
+  }
   if constexpr (NEXT > 0) split_steps<NEXT>(a, k_next, nhi, nlo);
-  wg_wait<0>();
-  fence_regs(part);
-  fence_regs(hi);
-  fence_regs(lo);
-  ring.release(slot);
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) acc[i] += part[i];
 }
 
-// acc += A B for the warpgroup's 64 rows and N output columns, in 3xTF32. B
-// arrives as `katoms` K atoms of 16 columns, each a hi and a lo ring tile of
-// which this warpgroup reads the rows from byte b_off; the last atom carries
-// LAST K steps of 8. Atoms alternate between two A register sets, so each
-// atom's A is split while the previous atom's wgmmas run.
-template <int N, int LAST, class ASrc>
-__device__ __forceinline__ void product(float (&acc)[N / 2], Ring& ring, const ASrc& a, int katoms,
-                                        uint32_t b_off) {
-  float part[N / 2];
+// acc = A B for the warpgroup's 64 rows and N output columns, in 3xTF32, as
+// one wgmma chain over `katoms` (1 to 4) K atoms of 16 from A column k0, the
+// last of LAST K steps, each ring stage holding APS of them (1, or 2 for
+// [W1 | W3]): at most 24 wgmmas in one accumulator, since the tensor cores'
+// truncation grows with the chain. An atom's wgmmas are issued before the
+// previous atom's are waited for, so the tensor cores see no gap between
+// them within the chain.
+template <int N, int LAST, int APS, class ASrc>
+__device__ __forceinline__ void chain(float (&acc)[N / 2], Ring& ring, const ASrc& a, int katoms,
+                                      int k0, uint32_t b_off, uint32_t atom_bytes = 0) {
+  static_assert(APS == 1 || APS == 2, "atoms per stage");
+  constexpr int P1 = 1 % APS, P3 = 3 % APS;  // stage positions of atoms 1 and 3
   uint32_t hx[2][4], lx[2][4], hy[2][4], ly[2][4];
-  if (katoms == 1) {
-    split_steps<LAST>(a, 0, hx, lx);
-    atom<N, LAST, 0>(acc, part, ring, b_off, hx, lx, a, 0, hy, ly);
-    return;
+  Slot cur{}, prev{};
+  fence_regs(acc);
+  switch (katoms) {
+    case 1:
+      split_steps<LAST>(a, k0, hx, lx);
+      chain_atom<N, LAST, 0, true, 0>(acc, ring, b_off, atom_bytes, hx, lx, a, 0, hy, ly, cur, prev);
+      break;
+    case 2:
+      split_steps<2>(a, k0, hx, lx);
+      chain_atom<N, 2, LAST, true, 0>(acc, ring, b_off, atom_bytes, hx, lx, a, k0 + kAtomK, hy, ly,
+                                      cur, prev);
+      chain_atom<N, LAST, 0, false, P1>(acc, ring, b_off, atom_bytes, hy, ly, a, 0, hx, lx, cur,
+                                        prev);
+      break;
+    case 3:
+      split_steps<2>(a, k0, hx, lx);
+      chain_atom<N, 2, 2, true, 0>(acc, ring, b_off, atom_bytes, hx, lx, a, k0 + kAtomK, hy, ly,
+                                   cur, prev);
+      chain_atom<N, 2, LAST, false, P1>(acc, ring, b_off, atom_bytes, hy, ly, a, k0 + 2 * kAtomK,
+                                        hx, lx, cur, prev);
+      chain_atom<N, LAST, 0, false, 0>(acc, ring, b_off, atom_bytes, hx, lx, a, 0, hy, ly, cur,
+                                       prev);
+      break;
+    default:
+      split_steps<2>(a, k0, hx, lx);
+      chain_atom<N, 2, 2, true, 0>(acc, ring, b_off, atom_bytes, hx, lx, a, k0 + kAtomK, hy, ly,
+                                   cur, prev);
+      chain_atom<N, 2, 2, false, P1>(acc, ring, b_off, atom_bytes, hy, ly, a, k0 + 2 * kAtomK, hx,
+                                     lx, cur, prev);
+      chain_atom<N, 2, LAST, false, 0>(acc, ring, b_off, atom_bytes, hx, lx, a, k0 + 3 * kAtomK,
+                                       hy, ly, cur, prev);
+      chain_atom<N, LAST, 0, false, P3>(acc, ring, b_off, atom_bytes, hy, ly, a, 0, hx, lx, cur,
+                                        prev);
+      break;
   }
-  split_steps<2>(a, 0, hx, lx);
-  int ka = 0;
+  WAIT_CLOCK(W_WGMMA, wg_wait<0>())
+  fence_regs(acc);
+  ring.release(cur);
+}
+
+// acc += A B over a whole K of `katoms` atoms (a multiple of 4), as chains of
+// 4 atoms into a fresh partial each, the partials added to acc with
+// round-to-nearest adds.
+template <int N, int APS, class ASrc>
+__device__ __forceinline__ void product(float (&acc)[N / 2], Ring& ring, const ASrc& a, int katoms,
+                                        uint32_t b_off, uint32_t atom_bytes = 0) {
+  float part[N / 2];
 #pragma unroll 1
-  for (; ka + 3 < katoms; ka += 2) {  // atoms ka and ka + 1, two or more after them
-    atom<N, 2, 2>(acc, part, ring, b_off, hx, lx, a, (ka + 1) * kAtomK, hy, ly);
-    atom<N, 2, 2>(acc, part, ring, b_off, hy, ly, a, (ka + 2) * kAtomK, hx, lx);
-  }
-  if (katoms - ka == 3) {
-    atom<N, 2, 2>(acc, part, ring, b_off, hx, lx, a, (ka + 1) * kAtomK, hy, ly);
-    atom<N, 2, LAST>(acc, part, ring, b_off, hy, ly, a, (ka + 2) * kAtomK, hx, lx);
-    atom<N, LAST, 0>(acc, part, ring, b_off, hx, lx, a, 0, hy, ly);
-  } else {  // two left
-    atom<N, 2, LAST>(acc, part, ring, b_off, hx, lx, a, (ka + 1) * kAtomK, hy, ly);
-    atom<N, LAST, 0>(acc, part, ring, b_off, hy, ly, a, 0, hx, lx);
+  for (int ka = 0; ka < katoms; ka += 4) {
+    chain<N, 2, APS>(part, ring, a, 4, ka * kAtomK, b_off, atom_bytes);
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) acc[i] += part[i];
   }
 }
 
-// Takes and releases `katoms` atoms of the ring without reading them: a
+// Takes and releases `nstages` stages of the ring without reading them: a
 // warpgroup with no columns in a tile.
-__device__ __forceinline__ void skip_atoms(Ring& ring, int katoms) {
-  for (int ka = 0; ka < katoms; ++ka) {
-    const int slot = ring.stage;
-    ring.take();
-    ring.take();
-    ring.release(slot);
-  }
+__device__ __forceinline__ void skip_stages(Ring& ring, int nstages) {
+  for (int ka = 0; ka < nstages; ++ka) ring.release(ring.take());
 }
 
 // Accumulator coordinates of this thread: rows er and er + 8 of the 64,
@@ -557,20 +726,95 @@ __device__ __forceinline__ void store_qkv(const float (&acc)[48], int wg, float*
   }
 }
 
-// xs[row, n0 + col] = xs + (acc + bias): the residual add.
-template <int N>
-__device__ __forceinline__ void add_residual(const float (&acc)[N / 2], float* xs, int n0,
-                                             const float* __restrict__ bias) {
+// The thread's float2 of out (or x) at the accumulator positions of this
+// warpgroup's 128 columns (rows er, er + 8; columns n0 + 8 j + ec, + 1) of
+// the rows below nvalid, zero elsewhere: all 32 loads issued before any is
+// used. rows: the tile's first row.
+template <bool READONLY>
+__device__ __forceinline__ void load_acc_layout(float2 (&v)[32], const float* rows, int n0,
+                                                int nvalid) {
   const AccPos p;
 #pragma unroll
-  for (int j = 0; j < N / 8; ++j) {
+  for (int j = 0; j < 16; ++j) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = p.er + 8 * half;
+      const float2* src = reinterpret_cast<const float2*>(rows + r * kD + n0 + 8 * j + p.ec);
+      v[2 * j + half] = r >= nvalid ? make_float2(0.f, 0.f) : READONLY ? __ldg(src) : *src;
+    }
+  }
+}
+
+// The out-projection of the head groups so far, parked in out (orow: the
+// tile's first row) for this warpgroup's 128 columns of the thread's rows
+// below nvalid: sum = acc after the first group, sum + acc after the next.
+__device__ __forceinline__ void park_out_proj(const float (&acc)[64], float* orow, int n0,
+                                              int nvalid, bool first) {
+  const AccPos p;
+  float2 sum[32];
+  if (first) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sum[i] = make_float2(0.f, 0.f);
+  } else {
+    load_acc_layout<false>(sum, orow, n0, nvalid);
+  }
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = p.er + 8 * half;
+      const float2 v = sum[2 * j + half];
+      if (r < nvalid)
+        *reinterpret_cast<float2*>(orow + r * kD + n0 + 8 * j + p.ec) =
+            make_float2(v.x + acc[4 * j + 2 * half], v.y + acc[4 * j + 2 * half + 1]);
+    }
+  }
+}
+
+// The first residual add, x1 = x + ((sum + acc) + bias), sum the parked
+// out-projection of the earlier head groups and acc the last group's, for
+// this warpgroup's 128 columns of the thread's rows, x read again from
+// global memory (xr: the tile's first row): into the row tile xs (LN2's
+// input) and, for rows below nvalid, into out.
+__device__ __forceinline__ void residual_out(const float (&acc)[64], const float* __restrict__ xr,
+                                             float* xs, float* orow, int n0,
+                                             const float* __restrict__ bias, int nvalid) {
+  const AccPos p;
+  float2 xv[32], sum[32];
+  load_acc_layout<true>(xv, xr, n0, nvalid);
+  load_acc_layout<false>(sum, orow, n0, nvalid);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
     const int col = n0 + 8 * j + p.ec;
     const float2 b = __ldg(reinterpret_cast<const float2*>(bias + col));
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      float2* xp = reinterpret_cast<float2*>(xs + (p.er + 8 * half) * kLD + col);
-      const float2 xv = *xp;
-      *xp = make_float2(xv.x + (acc[4 * j + 2 * half] + b.x), xv.y + (acc[4 * j + 2 * half + 1] + b.y));
+      const int r = p.er + 8 * half, i = 2 * j + half;
+      const float2 v = make_float2(xv[i].x + ((sum[i].x + acc[4 * j + 2 * half]) + b.x),
+                                   xv[i].y + ((sum[i].y + acc[4 * j + 2 * half + 1]) + b.y));
+      *reinterpret_cast<float2*>(xs + r * kLD + col) = v;
+      if (r < nvalid) *reinterpret_cast<float2*>(orow + r * kD + col) = v;
+    }
+  }
+}
+
+// The second, out = x1 + (acc + bias), x1 read back from out where this
+// thread stored it, for rows below nvalid.
+__device__ __forceinline__ void residual_final(const float (&acc)[64], float* orow, int n0,
+                                               const float* __restrict__ bias, int nvalid) {
+  const AccPos p;
+  float2 x1[32];
+  load_acc_layout<false>(x1, orow, n0, nvalid);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = n0 + 8 * j + p.ec;
+    const float2 b = __ldg(reinterpret_cast<const float2*>(bias + col));
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = p.er + 8 * half, i = 2 * j + half;
+      if (r < nvalid)
+        *reinterpret_cast<float2*>(orow + r * kD + col) =
+            make_float2(x1[i].x + (acc[4 * j + 2 * half] + b.x), x1[i].y + (acc[4 * j + 2 * half + 1] + b.y));
     }
   }
 }
@@ -582,16 +826,18 @@ __device__ __forceinline__ float silu_gate(float h1, float h3) {
 }
 
 // This warpgroup's part of one [W1 | W3] tile: T = N / 2 hidden columns,
-// its W1 rows over its W3 rows in one product, then h = silu(h1 + b1) *
-// (h3 + b3) into the gate tile hs at local column hc (global column h0 + hc).
+// its W1 rows over its W3 rows in one product (K atoms of atom_bytes, two a
+// stage), then h = silu(h1 + b1) * (h3 + b3) into the gate tile hs at local
+// column hc (global column h0 + hc).
 template <int N>
-__device__ __forceinline__ void hidden_part(Ring& ring, const NormA& a, uint32_t b_off, float* hs,
+__device__ __forceinline__ void hidden_part(Ring& ring, const RowsA& a, uint32_t b_off,
+                                            uint32_t atom_bytes, float* hs,
                                             const float* __restrict__ b1,
                                             const float* __restrict__ b3, int hc) {
   constexpr int T = N / 2;
   float acc[N / 2];
   zero(acc);
-  product<N, 2>(acc, ring, a, kKA, b_off);
+  product<N, 2>(acc, ring, a, kKA, b_off, atom_bytes);
   const AccPos p;
 #pragma unroll
   for (int j = 0; j < T / 8; ++j) {
@@ -608,61 +854,63 @@ __device__ __forceinline__ void hidden_part(Ring& ring, const NormA& a, uint32_t
   }
 }
 
-// Mean and 1 / sqrt(var + 1e-5) of this thread's A rows r0 = 16 (w % 4) + g
-// and r0 + 8, from its warp's 16 residual rows: each row reduced by the
-// whole warp (8 columns a lane), 8 rows in flight together. Both consumer
-// warpgroups compute them, each for its own threads.
-__device__ __forceinline__ void row_stats(const float* xs, float& mu0, float& inv0, float& mu8,
-                                          float& inv8) {
+// LayerNorm (eps 1e-5) of the tile's 64 rows in place in shared memory:
+// warp w takes rows 8 w .. 8 w + 7, each reduced by the whole warp (8
+// columns a lane), the 8 rows in flight together.
+__device__ __forceinline__ void layer_norm_rows(float* xs, const float* __restrict__ scale,
+                                                const float* __restrict__ bias) {
   constexpr int E = kD / 32;
-  const int lane = threadIdx.x & 31, g = lane >> 2, row0 = 16 * ((threadIdx.x >> 5) & 3);
+  const int lane = threadIdx.x & 31, row0 = 8 * (threadIdx.x >> 5);
+  float v[8][E], mu[8], sq[8];
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    float v[8][E], mu[8], sq[8];
+  for (int i = 0; i < 8; ++i) {
+    const float* xr = xs + (row0 + i) * kLD + E * lane;
+    mu[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float* xr = xs + (row0 + 8 * half + i) * kLD + E * lane;
-      mu[i] = 0.f;
-#pragma unroll
-      for (int e = 0; e < E; e += 4) {
-        const float4 u = *reinterpret_cast<const float4*>(xr + e);
-        v[i][e] = u.x;
-        v[i][e + 1] = u.y;
-        v[i][e + 2] = u.z;
-        v[i][e + 3] = u.w;
-        mu[i] += (u.x + u.y) + (u.z + u.w);
-      }
+    for (int e = 0; e < E; e += 4) {
+      const float4 u = *reinterpret_cast<const float4*>(xr + e);
+      v[i][e] = u.x;
+      v[i][e + 1] = u.y;
+      v[i][e + 2] = u.z;
+      v[i][e + 3] = u.w;
+      mu[i] += (u.x + u.y) + (u.z + u.w);
     }
+  }
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
+  for (int off = 16; off > 0; off >>= 1) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i) mu[i] += __shfl_xor_sync(0xffffffffu, mu[i], off);
-    }
+    for (int i = 0; i < 8; ++i) mu[i] += __shfl_xor_sync(0xffffffffu, mu[i], off);
+  }
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      mu[i] *= 1.f / kD;
-      sq[i] = 0.f;
+  for (int i = 0; i < 8; ++i) {
+    mu[i] *= 1.f / kD;
+    sq[i] = 0.f;
 #pragma unroll
-      for (int e = 0; e < E; ++e) sq[i] += (v[i][e] - mu[i]) * (v[i][e] - mu[i]);
-    }
+    for (int e = 0; e < E; ++e) sq[i] += (v[i][e] - mu[i]) * (v[i][e] - mu[i]);
+  }
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
+  for (int off = 16; off > 0; off >>= 1) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i) sq[i] += __shfl_xor_sync(0xffffffffu, sq[i], off);
-    }
+    for (int i = 0; i < 8; ++i) sq[i] += __shfl_xor_sync(0xffffffffu, sq[i], off);
+  }
+  float s[E], b[E];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      if (i == g) {
-        const float inv = rsqrtf(sq[i] * (1.f / kD) + 1e-5f);
-        if (half == 0) {
-          mu0 = mu[i];
-          inv0 = inv;
-        } else {
-          mu8 = mu[i];
-          inv8 = inv;
-        }
-      }
-    }
+  for (int e = 0; e < E; e += 4) {
+    const float4 us = __ldg(reinterpret_cast<const float4*>(scale + E * lane + e));
+    const float4 ub = __ldg(reinterpret_cast<const float4*>(bias + E * lane + e));
+    s[e] = us.x, s[e + 1] = us.y, s[e + 2] = us.z, s[e + 3] = us.w;
+    b[e] = ub.x, b[e + 1] = ub.y, b[e + 2] = ub.z, b[e + 3] = ub.w;
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float inv = rsqrtf(sq[i] * (1.f / kD) + 1e-5f);
+    float* xr = xs + (row0 + i) * kLD + E * lane;
+#pragma unroll
+    for (int e = 0; e < E; e += 4)
+      *reinterpret_cast<float4*>(xr + e) = make_float4(
+          (v[i][e] - mu[i]) * inv * s[e] + b[e], (v[i][e + 1] - mu[i]) * inv * s[e + 1] + b[e + 1],
+          (v[i][e + 2] - mu[i]) * inv * s[e + 2] + b[e + 2],
+          (v[i][e + 3] - mu[i]) * inv * s[e + 3] + b[e + 3]);
   }
 }
 
@@ -685,8 +933,8 @@ __device__ __forceinline__ float dot16(const float (&q)[kHeadDim], const float* 
 }
 
 // o = softmax(q k^T * 0.25) v for the head group's 4 heads, one consumer
-// thread per (row, head), in f32, for sequences of S <= KMAX: the row's S
-// logits computed once into registers, their max, exp and sum, then the
+// thread per (row, head), in f32, for sequences of S <= KMAX <= 36: the row's
+// S logits computed once into registers, their max, exp and sum, then the
 // weighted sum of v times the sum's reciprocal. Rows are the fastest index,
 // so the eight threads of a 16-byte access phase read eight rows (stride 4
 // mod 32 words, or one broadcast key row), free of bank conflicts. o
@@ -745,29 +993,60 @@ __device__ __forceinline__ void attention(float* qs, const float* ks, const floa
   }
 }
 
+// The same for sequences longer than 36, in two passes over the keys (the
+// logits' max, then exp, sum and the weighted v, each logit computed
+// again), with no array of logits.
+__device__ __forceinline__ void attention_long(float* qs, const float* ks, const float* vs, int S,
+                                               int nrows) {
+  for (int item = threadIdx.x; item < nrows * kGroupHeads; item += kConsumerThreads) {
+    const int r = item % nrows, c = (item / nrows) * kHeadDim;
+    const int s0 = r - r % S;
+    float* qp = qs + r * kLDQ + c;
+    float q[kHeadDim];
+#pragma unroll
+    for (int d = 0; d < kHeadDim; d += 4) {
+      const float4 u = *reinterpret_cast<const float4*>(qp + d);
+      q[d] = u.x;
+      q[d + 1] = u.y;
+      q[d + 2] = u.z;
+      q[d + 3] = u.w;
+    }
+    const float* kp = ks + s0 * kLDQ + c;
+    const float* vp = vs + s0 * kLDQ + c;
+    float mx = -INFINITY;
+    for (int j = 0; j < S; ++j) mx = fmaxf(mx, dot16(q, kp + j * kLDQ) * 0.25f);
+    float sum = 0.f, o[kHeadDim];
+#pragma unroll
+    for (int d = 0; d < kHeadDim; ++d) o[d] = 0.f;
+    for (int j = 0; j < S; ++j) {
+      const float e = expf(dot16(q, kp + j * kLDQ) * 0.25f - mx);
+      sum += e;
+#pragma unroll
+      for (int d = 0; d < kHeadDim; d += 4) {
+        const float4 u = *reinterpret_cast<const float4*>(vp + j * kLDQ + d);
+        o[d] = fmaf(e, u.x, o[d]);
+        o[d + 1] = fmaf(e, u.y, o[d + 1]);
+        o[d + 2] = fmaf(e, u.z, o[d + 2]);
+        o[d + 3] = fmaf(e, u.w, o[d + 3]);
+      }
+    }
+    const float inv = __fdividef(1.f, sum);  // sum in [1, 64]
+#pragma unroll
+    for (int d = 0; d < kHeadDim; d += 4)
+      *reinterpret_cast<float4*>(qp + d) =
+          make_float4(o[d] * inv, o[d + 1] * inv, o[d + 2] * inv, o[d + 3] * inv);
+  }
+}
+
 __device__ __forceinline__ void attention_any(float* qs, const float* ks, const float* vs, int S,
                                               int nrows) {
   if (S <= 4) attention<4>(qs, ks, vs, S, nrows);
   else if (S <= 9) attention<9>(qs, ks, vs, S, nrows);
   else if (S <= 18) attention<18>(qs, ks, vs, S, nrows);
   else if (S <= 36) attention<36>(qs, ks, vs, S, nrows);
-  else attention<kMaxSeq>(qs, ks, vs, S, nrows);
+  else attention_long(qs, ks, vs, S, nrows);
 }
 
-// Built with -DHSIMAE_PHASE_CLOCKS (scripts/profile_fused_block.py), the
-// first consumer thread of every CTA adds the SM clocks it spends in each
-// phase of a tile into g_phase_clocks[phase]; without it PHASE_MARK is empty.
-#ifdef HSIMAE_PHASE_CLOCKS
-__device__ unsigned long long g_phase_clocks[16];
-#define PHASE_MARK(k)                                                  \
-  if (threadIdx.x == 0) {                                              \
-    const long long t1_ = clock64();                                   \
-    atomicAdd(&g_phase_clocks[k], (unsigned long long)(t1_ - t0_));    \
-    t0_ = t1_;                                                         \
-  }
-#else
-#define PHASE_MARK(k)
-#endif
 
 __global__ void __launch_bounds__(kThreads, 1)
     fused_block_tf32x3_cluster_kernel(const float* __restrict__ x, float* __restrict__ out,
@@ -776,184 +1055,142 @@ __global__ void __launch_bounds__(kThreads, 1)
                                       int ntiles, long long total_rows, int csize) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  const uint32_t full0 = smem_u32(smem + kBarOff), empty0 = full0 + 8 * kStages;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int rank = (int)cluster_rank();
+  const int R = nseq * S;  // rows of whole sequences per tile
+  const int group0 = blockIdx.x / csize, ngroups_grid = gridDim.x / csize;
+  const int ngroups = (ntiles + csize - 1) / csize;  // tile groups of csize, the last maybe short
+  const int my_groups = group0 < ngroups ? (ngroups - 1 - group0) / ngroups_grid + 1 : 0;
+  const Stream stream{hi, lo, smem_u32(smem), reinterpret_cast<int*>(smem + kCountOff), csize, rank,
+                      Hp,
+                      kGroups * (kKA + kGroupKA) + (Hp + kHidTile - 1) / kHidTile * (kKA / 2) +
+                          (Hp + kAtomK - 1) / kAtomK,
+                      my_groups};
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(full0 + 8 * s, 1);
+      mbar_init(stream.full(s), 1);
       // one arrival per consumer warp of every CTA in the cluster
-      mbar_init(empty0 + 8 * s, kConsumerWarps * csize);
+      mbar_init(stream.empty(s), kConsumerWarps * csize);
+      stream.released[s] = 0;
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   // every CTA's barriers are initialised before any multicast or remote arrive
   cluster_sync();
-  const int R = nseq * S;  // rows of whole sequences per tile
-  const int group0 = blockIdx.x / csize, ngroups_grid = gridDim.x / csize;
-  const int ngroups = (ntiles + csize - 1) / csize;  // tile groups of csize, the last maybe short
+  if (threadIdx.x == 0 && my_groups > 0) {  // the first kStages stages of the stream
+    for (int a = 0; a < kStages; ++a) stream.issue(a, a);
+  }
 
-  if (warp >= kConsumerWarps) {
-    // ---- producer warpgroup: one thread streams this CTA's 1/csize share
-    // of every hi and lo tile of the pack into the ring of every CTA of the
-    // cluster, tile group after tile group; the warpgroup hands its
-    // registers to the consumers ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-    if (warp == kConsumerWarps && lane == 0) {
-      const uint32_t slots = smem_u32(smem);
-      const uint16_t mask = (uint16_t)((1u << csize) - 1);
-      int stage = 0;
-      uint32_t phase = 0;
-      auto push = [&](const uint8_t* src, int bytes) {
-        mbar_wait(empty0 + 8 * stage, phase ^ 1);
-        mbar_expect_tx(full0 + 8 * stage, bytes);
-        const uint32_t dst = slots + stage * kSlotBytes, bar = full0 + 8 * stage;
-        if (csize == 1) {
-          bulk_load(dst, src, bytes, bar);
-        } else {
-          const int share = bytes / csize;
-          bulk_load_multicast(dst + rank * share, src + rank * share, share, bar, mask);
-        }
-        if (++stage == kStages) {
-          stage = 0;
-          phase ^= 1;
-        }
-      };
-      for (int grp = group0; grp < ngroups; grp += ngroups_grid) {
-        long long off = 0;
-        auto pair = [&](int bytes) {  // one K atom: its hi tile, then its lo tile
-          push(hi + off, bytes);
-          push(lo + off, bytes);
-          off += bytes;
-        };
-        for (int g = 0; g < kGroups; ++g) {
-          for (int i = 0; i < kKA; ++i) pair(kQkvAtomBytes);        // [q | v0 | k | v1] of group g
-          for (int i = 0; i < kGroupKA; ++i) pair(kWideAtomBytes);  // its K slice of Wo
-        }
-        for (int h0 = 0; h0 < Hp; h0 += kHidTile) {
-          const int tw = min(kHidTile, Hp - h0);
-          for (int i = 0; i < kKA; ++i) pair(2 * tw * kAtomK * 4);  // [W1 | W3]
-          for (int i = 0; i < (tw + kAtomK - 1) / kAtomK; ++i) pair(kWideAtomBytes);  // its K slice of W2
-        }
-      }
-    }
-  } else {
-    // ---- consumers: warpgroup wg takes output columns [128 wg, + 128) of
-    // Wo and W2, its 96 columns of each group's q/k/v, and its half of each
-    // [W1 | W3] tile; warp w holds rows [16 (w % 4), + 16) ----
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-    const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
-    const int r0 = 16 * (warp & 3) + g;  // this thread's A and accumulator rows: r0, r0 + 8
-    constexpr int bar_all = 1;
-    float* xs = reinterpret_cast<float*>(smem + kXOff);
-    float* qs = reinterpret_cast<float*>(smem + kQkvOff);
-    float* ks = qs + kRows * kLDQ;
-    float* vs = ks + kRows * kLDQ;
-    const float* b1 = vecs + V_NUM_D * kD;
-    const float* b3 = b1 + Hp;
-    const RowsA xrows{xs + r0 * kLD + t, xs + (r0 + 8) * kLD + t};
-    const int n0 = wg * (kD / kConsumers);                          // this warpgroup's Wo / W2 columns
-    const uint32_t wide_off = n0 * kAtomK * 4;                      // and its rows of their B tiles
-    const uint32_t qkv_off = wg * (kQkvRows / kConsumers) * kAtomK * 4;
-    Ring ring{smem_u32(smem), full0, empty0, 0, 0, csize};
-    constexpr int C4 = kD / 4;  // float4 per row
+  // warpgroup wg takes output columns [128 wg, + 128) of Wo and W2, its 96
+  // columns of each group's q/k/v, and its half of each [W1 | W3] tile;
+  // warp w holds rows [16 (w % 4), + 16) of every product
+  const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * (warp & 3) + g;  // this thread's A and accumulator rows: r0, r0 + 8
+  constexpr int bar_all = 1;
+  float* xs = reinterpret_cast<float*>(smem + kXOff);
+  float* qs = reinterpret_cast<float*>(smem + kQkvOff);
+  float* ks = qs + kRows * kLDQ;
+  float* vs = ks + kRows * kLDQ;
+  const float* b1 = vecs + V_NUM_D * kD;
+  const float* b3 = b1 + Hp;
+  const RowsA yrows{xs + r0 * kLD + t, xs + (r0 + 8) * kLD + t};  // LN1(x), later LN2(x1)
+  const int n0 = wg * (kD / kConsumers);                          // this warpgroup's Wo / W2 columns
+  const uint32_t wide_off = n0 * kAtomK * 4;                      // and its rows of their B tiles
+  const uint32_t qkv_off = wg * (kQkvRows / kConsumers) * kAtomK * 4;
+  Ring ring{stream, 0, 0, 0, 0};
+  constexpr int C4 = kD / 4;  // float4 per row
 #ifdef HSIMAE_PHASE_CLOCKS
-    long long t0_ = clock64();
+  long long t0_ = clock64();
 #endif
-    for (int grp = group0; grp < ngroups; grp += ngroups_grid) {
-      const int tile = grp * csize + rank;
-      const long long row0 = (long long)tile * R;
-      // an empty tile (past the last) consumes the ring and stores nothing
-      const int nvalid = tile < ntiles ? (int)min((long long)R, total_rows - row0) : 0;
-      bar_sync(bar_all, kConsumerThreads);  // x and the q/k/v space are free of the previous tile
-      PHASE_MARK(0)
+  for (int grp = group0; grp < ngroups; grp += ngroups_grid) {
+    const int tile = grp * csize + rank;
+    const long long row0 = (long long)tile * R;
+    // an empty tile (past the last) consumes the ring and stores nothing
+    const int nvalid = tile < ntiles ? (int)min((long long)R, total_rows - row0) : 0;
+    const float* xr = x + row0 * kD;
+    float* orow = out + row0 * kD;
+    WAIT_CLOCK(W_BAR, bar_sync(bar_all, kConsumerThreads))  // the previous tile is done with xs
+    PHASE_MARK(0)
 #pragma unroll 4
-      for (int i = threadIdx.x; i < kRows * C4; i += kConsumerThreads) {  // x rows, zero past the valid
-        const int r = i / C4, c = (i % C4) * 4;
-        *reinterpret_cast<float4*>(xs + r * kLD + c) =
-            r < nvalid ? __ldg(reinterpret_cast<const float4*>(x + (row0 + r) * kD + c))
-                       : make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-      bar_sync(bar_all, kConsumerThreads);
-      float mu0, inv0, mu8, inv8;
-      row_stats(xs, mu0, inv0, mu8, inv8);
-      PHASE_MARK(1)
-
-      // ---- attention half, by head group ----
-      float oacc[64];  // o Wo for this warpgroup's 128 columns, summed over the groups
-      zero(oacc);
-      {
-        const NormA y{xrows, mu0, inv0, mu8, inv8, vecs + V_LN1_S * kD + t, vecs + V_LN1_B * kD + t};
-#pragma unroll 1
-        for (int gi = 0; gi < kGroups; ++gi) {
-          {
-            float acc[48];
-            zero(acc);
-            product<96, 2>(acc, ring, y, kKA, qkv_off);
-            bar_sync(bar_all, kConsumerThreads);  // every warp has read the previous group's o
-            store_qkv(acc, wg, qs, ks, vs, vecs, gi * kGroupCols);
-          }
-          bar_sync(bar_all, kConsumerThreads);  // the group's q, k, v are in place
-          PHASE_MARK(2)
-          attention_any(qs, ks, vs, S, nvalid);
-          bar_sync(bar_all, kConsumerThreads);  // its o is in place
-          PHASE_MARK(3)
-          const RowsA o{qs + r0 * kLDQ + t, qs + (r0 + 8) * kLDQ + t};
-          product<128, 2>(oacc, ring, o, kGroupKA, wide_off);
-          PHASE_MARK(4)
-        }
-      }
-      add_residual<128>(oacc, xs, n0, vecs + V_BO * kD);
-      // every residual column is updated, and every warp has read its o: the
-      // gate tiles may overwrite q/k/v
-      bar_sync(bar_all, kConsumerThreads);
-      PHASE_MARK(4)
-
-      // ---- SwiGLU half, by 64 hidden columns ----
-      row_stats(xs, mu0, inv0, mu8, inv8);
-      PHASE_MARK(5)
-      float wacc[64];  // W2's output for this warpgroup's 128 columns, summed over the tiles
-      zero(wacc);
-      {
-        const NormA y2{xrows, mu0, inv0, mu8, inv8, vecs + V_LN2_S * kD + t, vecs + V_LN2_B * kD + t};
-        int buf = 0;
-#pragma unroll 1
-        for (int h0 = 0; h0 < Hp; h0 += kHidTile, buf ^= 1) {
-          // the tile's tw hidden columns: the first warpgroup takes tw0 (a
-          // multiple of 8, at least half), the second the rest
-          const int tw = min(kHidTile, Hp - h0), tw0 = (tw / 2 + 7) / 8 * 8;
-          const int mine = wg == 0 ? tw0 : tw - tw0;
-          const int hc = wg == 0 ? 0 : tw0;
-          const uint32_t off = wg == 0 ? 0 : 2 * tw0 * kAtomK * 4;
-          float* hs = qs + buf * kRows * kLDQ;  // gate tiles alternate between two buffers
-          switch (mine) {
-            case 32: hidden_part<64>(ring, y2, off, hs, b1 + h0, b3 + h0, hc); break;
-            case 24: hidden_part<48>(ring, y2, off, hs, b1 + h0, b3 + h0, hc); break;
-            case 16: hidden_part<32>(ring, y2, off, hs, b1 + h0, b3 + h0, hc); break;
-            case 8: hidden_part<16>(ring, y2, off, hs, b1 + h0, b3 + h0, hc); break;
-            default: skip_atoms(ring, kKA); break;
-          }
-          bar_sync(bar_all, kConsumerThreads);  // the gate tile is in place
-          PHASE_MARK(6)
-          const RowsA h{hs + r0 * kLDQ + t, hs + (r0 + 8) * kLDQ + t};
-          const int hka = (tw + kAtomK - 1) / kAtomK;
-          if (tw % kAtomK) product<128, 1>(wacc, ring, h, hka, wide_off);
-          else product<128, 2>(wacc, ring, h, hka, wide_off);
-          PHASE_MARK(7)
-        }
-      }
-      add_residual<128>(wacc, xs, n0, vecs + V_B2 * kD);
-      bar_sync(bar_all, kConsumerThreads);  // every output column is in place
-      PHASE_MARK(7)
-#pragma unroll 4
-      for (int i = threadIdx.x; i < kRows * C4; i += kConsumerThreads) {
-        const int r = i / C4, c = (i % C4) * 4;
-        if (r < nvalid)
-          *reinterpret_cast<float4*>(out + (row0 + r) * kD + c) =
-              *reinterpret_cast<const float4*>(xs + r * kLD + c);
-      }
-      PHASE_MARK(8)
+    for (int i = threadIdx.x; i < kRows * C4; i += kConsumerThreads) {  // x rows, zero past the valid
+      const int r = i / C4, c = (i % C4) * 4;
+      *reinterpret_cast<float4*>(xs + r * kLD + c) =
+          r < nvalid ? __ldg(reinterpret_cast<const float4*>(xr + r * kD + c))
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
     }
+    bar_sync(bar_all, kConsumerThreads);
+    layer_norm_rows(xs, vecs + V_LN1_S * kD, vecs + V_LN1_B * kD);
+    bar_sync(bar_all, kConsumerThreads);  // LN1(x) in place
+    PHASE_MARK(1)
+
+    // ---- attention half, by head group ----
+#pragma unroll 1
+    for (int gi = 0; gi < kGroups; ++gi) {
+      {
+        float acc[48];
+        zero(acc);
+        product<96, 1>(acc, ring, yrows, kKA, qkv_off);
+        WAIT_CLOCK(W_BAR, bar_sync(bar_all, kConsumerThreads))  // every warp has read the previous group's o
+        store_qkv(acc, wg, qs, ks, vs, vecs, gi * kGroupCols);
+      }
+      WAIT_CLOCK(W_BAR, bar_sync(bar_all, kConsumerThreads))  // the group's q, k, v are in place
+      PHASE_MARK(2)
+      attention_any(qs, ks, vs, S, nvalid);
+      WAIT_CLOCK(W_BAR, bar_sync(bar_all, kConsumerThreads))  // its o is in place
+      PHASE_MARK(3)
+      const RowsA o{qs + r0 * kLDQ + t, qs + (r0 + 8) * kLDQ + t};
+      float oacc[64];  // o Wo of this group, for this warpgroup's 128 columns
+      chain<128, 2, 1>(oacc, ring, o, kGroupKA, 0, wide_off);
+      if (gi + 1 < kGroups) {
+        park_out_proj(oacc, orow, n0, nvalid, gi == 0);
+      } else {
+        // every warp is done with LN1(x) and with o: x1 = x + (o Wo + bo) into xs and out
+        WAIT_CLOCK(W_BAR, bar_sync(bar_all, kConsumerThreads))
+        residual_out(oacc, xr, xs, orow, n0, vecs + V_BO * kD, nvalid);
+      }
+      PHASE_MARK(4)
+    }
+    bar_sync(bar_all, kConsumerThreads);  // x1 in place
+
+    // ---- SwiGLU half, by 64 hidden columns ----
+    layer_norm_rows(xs, vecs + V_LN2_S * kD, vecs + V_LN2_B * kD);
+    bar_sync(bar_all, kConsumerThreads);  // LN2(x1) in place
+    PHASE_MARK(5)
+    float wacc[64];  // W2's output for this warpgroup's 128 columns, summed over the tiles
+    zero(wacc);
+    int buf = 0;
+#pragma unroll 1
+    for (int h0 = 0; h0 < Hp; h0 += kHidTile, buf ^= 1) {
+      // the tile's tw hidden columns: the first warpgroup takes tw0 (a
+      // multiple of 8, at least half), the second the rest
+      const int tw = min(kHidTile, Hp - h0), tw0 = (tw / 2 + 7) / 8 * 8;
+      const int mine = wg == 0 ? tw0 : tw - tw0;
+      const int hc = wg == 0 ? 0 : tw0;
+      const uint32_t off = wg == 0 ? 0 : 2 * tw0 * kAtomK * 4;
+      float* hs = qs + buf * kRows * kLDQ;  // gate tiles alternate between two buffers
+      const uint32_t ab = 2 * tw * kAtomK * 4;  // one [W1 | W3] atom, in either image
+      switch (mine) {
+        case 32: hidden_part<64>(ring, yrows, off, ab, hs, b1 + h0, b3 + h0, hc); break;
+        case 24: hidden_part<48>(ring, yrows, off, ab, hs, b1 + h0, b3 + h0, hc); break;
+        case 16: hidden_part<32>(ring, yrows, off, ab, hs, b1 + h0, b3 + h0, hc); break;
+        case 8: hidden_part<16>(ring, yrows, off, ab, hs, b1 + h0, b3 + h0, hc); break;
+        default: skip_stages(ring, kKA / 2); break;
+      }
+      WAIT_CLOCK(W_BAR, bar_sync(bar_all, kConsumerThreads))  // the gate tile is in place
+      PHASE_MARK(6)
+      const RowsA h{hs + r0 * kLDQ + t, hs + (r0 + 8) * kLDQ + t};
+      const int hka = (tw + kAtomK - 1) / kAtomK;
+      {
+        float tacc[64];  // this tile's W2 h, added to the sum over the tiles
+        if (tw % kAtomK) chain<128, 1, 1>(tacc, ring, h, hka, 0, wide_off);
+        else chain<128, 2, 1>(tacc, ring, h, hka, 0, wide_off);
+#pragma unroll
+        for (int i = 0; i < 64; ++i) wacc[i] += tacc[i];
+      }
+      PHASE_MARK(7)
+    }
+    residual_final(wacc, orow, n0, vecs + V_B2 * kD, nvalid);  // out = x1 + (W2 h + b2)
+    PHASE_MARK(8)
   }
   // no CTA leaves while a partner may still write into its ring or arrive on
   // its barriers

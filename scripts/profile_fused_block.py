@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Where the time goes inside the fused-block wgmma kernels, on one card.
 
-    python3 scripts/profile_fused_block.py [--kernel wgmma|tf32x3|both]
+    python3 scripts/profile_fused_block.py [--kernel wgmma|tf32x3|cluster|both|all]
 
-Builds ``ops/csrc/fused_block_wgmma.cu`` (bfloat16) and
-``ops/csrc/fused_block_tf32x3.cu`` (float32, 3xTF32) a second time with
-``-DHSIMAE_PHASE_CLOCKS``, both nvcc runs at once: the first consumer thread
-of every CTA then adds the SM clocks it spends in each phase of a row tile
-to a device counter. For the HSIMAE-B main-path shapes at batch 4096 (and
-the D 64 / D 256 fusion shapes where the kernel takes them) it prints, per
+Builds ``ops/csrc/fused_block_wgmma.cu`` (bfloat16),
+``ops/csrc/fused_block_tf32x3.cu`` (float32 at D 64/128, 3xTF32) and
+``ops/csrc/fused_block_tf32x3_cluster.cu`` (float32 at D 256, clusters of
+``fused_block.CLUSTER_SIZE``) a second time with ``-DHSIMAE_PHASE_CLOCKS``,
+all nvcc runs at once (``both`` is wgmma and tf32x3, ``all`` adds cluster):
+the first consumer thread of every CTA then adds the SM clocks it spends in
+each phase of a row tile to a device counter. For the HSIMAE-B main-path
+shapes at batch 4096, HSIMAE-L's at D 256 and the D 64 fusion shape (each
+where the kernel takes it) it prints, per
 kernel and shape, the kernel's time with and without the instrumentation
 (CUDA events over back-to-back launches, the plain build first and last),
 the thousands of clocks per row tile in each phase with their shares, and,
@@ -28,6 +31,16 @@ rows into shared memory and the LN1 statistics), ``qkv`` (three products on
 the fly-normalised residual, their epilogues, the barrier), ``attention``,
 ``out_proj``, ``ln2`` (statistics and the barrier before the hidden tile),
 ``w13``, ``w2``, ``store`` (the output rows).
+
+Cluster (D 256) phases, summed over the four head groups and the hidden
+tiles: ``tile_start``, ``x_ln1``, ``qkv`` (each group's q/k/v product, its
+epilogue and barriers), ``attention``, ``out_proj`` (each group's slice of
+Wo, and the residual add), ``ln2``, ``w13`` (each gate tile and its
+barrier), ``w2`` (each tile's slice of W2, and the residual add),
+``store``; and, within them, the clocks spent waiting (counters 9-11):
+``ring_wait`` (for a weight stage to land, issuing the next ones
+meanwhile), ``wgmma_wait`` (for the warpgroup's wgmmas), ``bar_wait`` (at
+the consumers' barriers).
 """
 
 from __future__ import annotations
@@ -43,7 +56,8 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 SHAPES = {"blocks_1": (16384, 9, 128), "blocks_2": (36864, 4, 128), "fusion": (4096, 36, 128),
-          "fusion_D64": (4096, 36, 64), "fusion_D256": (4096, 36, 256)}
+          "fusion_D64": (4096, 36, 64), "blocks_1_D256": (16384, 9, 256),
+          "blocks_2_D256": (36864, 4, 256), "fusion_D256": (4096, 36, 256)}
 PROFILES = {
     "wgmma": {"lib": "fused_block_wgmma", "widths": (64, 128, 256),
               "phases": ("tile_start", "x_to_smem", "ln1", "qkv", "attention", "out_proj", "ln2",
@@ -51,12 +65,22 @@ PROFILES = {
     "tf32x3": {"lib": "fused_block_tf32x3", "widths": (64, 128),
                "phases": ("tile_start", "x_ln1", "qkv", "attention", "out_proj", "ln2", "w13",
                           "w2", "store")},
+    "cluster": {"lib": "fused_block_tf32x3_cluster", "widths": (256,),
+                "phases": ("tile_start", "x_ln1", "qkv", "attention", "out_proj", "ln2", "w13",
+                           "w2", "store"),
+                "waits": ("ring_wait", "wgmma_wait", "bar_wait")},
 }
+CHOICES = {"wgmma": ("wgmma",), "tf32x3": ("tf32x3",), "cluster": ("cluster",),
+           "both": ("wgmma", "tf32x3"), "all": ("wgmma", "tf32x3", "cluster")}
 
 
 def phase_weight_bytes(kernel: str, d: int, hp: int) -> dict:
     """Bytes of packed weights each product phase takes from the ring per row
-    tile (both images for the 3xTF32 kernel)."""
+    tile (both images for the 3xTF32 kernels)."""
+    if kernel == "cluster":  # K atoms of 16; q/k/v by head group of 64 columns
+        atom = d * 16 * 4 * 2  # a 256-row atom, hi and lo
+        return {"qkv": 3 * d * d * 4 * 2, "out_proj": d // 16 * atom,
+                "w13": 2 * hp * d * 4 * 2, "w2": -(-hp // 16) * atom}
     atom_k, images = (32, 2) if kernel == "tf32x3" else (64, 1)
     ka, hka = d // atom_k, -(-hp // atom_k)
     tile = d * 128 * images  # a D-wide product's K atom
@@ -69,7 +93,7 @@ def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=("wgmma", "tf32x3", "both"), default="both")
+    ap.add_argument("--kernel", choices=tuple(CHOICES), default="both")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_fused_block: needs a CUDA card", file=sys.stderr)
@@ -80,7 +104,7 @@ def main() -> int:
 
     from chip_smoke import random_block, time_ms
 
-    kernels = ("wgmma", "tf32x3") if args.kernel == "both" else (args.kernel,)
+    kernels = CHOICES[args.kernel]
     flags = ("-DHSIMAE_PHASE_CLOCKS",)
     libs = tuple(PROFILES[k]["lib"] for k in kernels)
     with ThreadPoolExecutor(2) as pool:  # the instrumented and the plain builds, all at once
@@ -99,12 +123,15 @@ def main() -> int:
                 continue
             p = random_block(d, swiglu_hidden_dim(d), gen, "cuda")
             stream = torch.cuda.current_stream().cuda_stream
-            if kernel == "tf32x3":
-                pack = fb.pack_block_tf32(p)
+            extra = ()
+            if kernel in ("tf32x3", "cluster"):
+                pack = fb.kernel_weights(p, torch.float32)
                 x = torch.randn(m, s, d, generator=gen).cuda()
                 hp = fb.padded_hidden(p.w1.shape[-1], fb.TF32_HIDDEN_MULTIPLE)
                 ptrs = (pack.hi.data_ptr(), pack.lo.data_ptr(), pack.vecs.data_ptr())
                 rows = 64
+                if kernel == "cluster":
+                    extra = (fb.CLUSTER_SIZE,)
             else:
                 pack = fb.pack_block(p)
                 x = torch.randn(m, s, d, generator=gen).to("cuda", torch.bfloat16)
@@ -115,7 +142,8 @@ def main() -> int:
             fn = getattr(probe, f"hsimae_{prof['lib']}")
 
             def run_probe():
-                rc = fn(x.data_ptr(), out_probe.data_ptr(), *ptrs, m, s, d, hp, d // 16, stream)
+                rc = fn(x.data_ptr(), out_probe.data_ptr(), *ptrs, m, s, d, hp, d // 16, *extra,
+                        stream)
                 if rc != 0:
                     raise RuntimeError(f"instrumented kernel launch failed: cudaError_t {rc}")
 
@@ -133,12 +161,15 @@ def main() -> int:
             tiles = -(-m // (rows // s))
             kclk = {ph: float(buf[i]) / tiles / 1e3 for i, ph in enumerate(prof["phases"])}
             total = sum(kclk.values())
+            waits = {w: float(buf[9 + i]) / tiles / 1e3 for i, w in enumerate(prof.get("waits", ()))}
             wbytes = phase_weight_bytes(kernel, d, hp)
             out[f"{kernel}:{label}"] = {
-                "kernel": prof["lib"], "shape": [m, s, d], "ms": plain_ms,
+                "kernel": prof["lib"], "shape": [m, s, d], "cluster": extra[0] if extra else None,
+                "ms": plain_ms,
                 "ms_instrumented": probed_ms, "instrumented_max_abs_diff": probe_diff,
                 "row_tiles": tiles, "kclk_per_tile": kclk,
                 "share": {ph: v / total for ph, v in kclk.items()},
+                "kclk_waiting_per_tile": waits,
                 "weight_bytes_per_tile": sum(wbytes.values()),
                 "weight_bytes_per_clock": {ph: b / (kclk[ph] * 1e3) for ph, b in wbytes.items()},
                 "weight_bytes_per_clock_whole_tile": sum(wbytes.values()) / (total * 1e3)}

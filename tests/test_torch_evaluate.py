@@ -3,9 +3,10 @@ classification of ``hsimae_tpu_torch`` against ``hsimae_tpu``, with JAX
 weights carried across by ``from_jax_params``; plus the weight mapping and
 the port's import hygiene (no JAX anywhere in the package or chip_smoke.py).
 
-Models are narrow (embed 32, depth 3, s_depth 2, 2 heads) and run in f32.
-Logit tolerance 1e-4: three blocks plus the head, each summing in another
-order than XLA."""
+Models are narrow (embed 32, depth 3, s_depth 2, 2 heads) and run in f32;
+one case runs HSIMAE-L's width (embed 256, 16 heads, SwiGLU 684) at the
+same depth. Logit tolerance 1e-4: three blocks plus the head, each summing
+in another order than XLA."""
 
 import os
 import subprocess
@@ -33,11 +34,13 @@ from hsimae_tpu_torch.train import evaluate as tev
 
 REPO = Path(__file__).resolve().parents[1]
 SMALL = dict(embed_dim=32, num_heads=2, depth=3, s_depth=2, decoder_depth=1)
+# HSIMAE-L's width and heads (its hidden width follows), depth cut as SMALL's
+WIDE_L = dict(SMALL, embed_dim=256, num_heads=16)
 NUM_CLASSES = 5
 
 
-def configs(**kw):
-    return jcfg.preset("HSIMAE-S", **SMALL, **kw), tcfg.preset("HSIMAE-S", **SMALL, **kw)
+def configs(size=SMALL, **kw):
+    return jcfg.preset("HSIMAE-S", **size, **kw), tcfg.preset("HSIMAE-S", **size, **kw)
 
 
 def jax_params(jc, num_classes=NUM_CLASSES, seed=0):
@@ -46,9 +49,10 @@ def jax_params(jc, num_classes=NUM_CLASSES, seed=0):
 
 
 @pytest.mark.parametrize("use_pallas", [False, True], ids=["jax_xla", "jax_fused_path"])
-@pytest.mark.parametrize("head_mode", ["agg", "gap"])
-def test_classify_logits_match_jax(head_mode, use_pallas):
-    jc, tc = configs(head_mode=head_mode)
+@pytest.mark.parametrize("head_mode,size", [("agg", SMALL), ("gap", SMALL), ("agg", WIDE_L)],
+                         ids=["agg", "gap", "agg-D256"])
+def test_classify_logits_match_jax(head_mode, size, use_pallas):
+    jc, tc = configs(size, head_mode=head_mode)
     params = jax_params(jc)
     x = np.random.default_rng(1).standard_normal((6, 9, 9, 32)).astype(np.float32)
     jm = jh.build_hsi_vit(jc.replace(use_pallas=use_pallas), NUM_CLASSES)
@@ -56,10 +60,11 @@ def test_classify_logits_match_jax(head_mode, use_pallas):
                                                     method=jh.HSIMAE.classify))(params, x))
     assert tc.use_kernel  # the port's inference path goes through the fused-block wrapper
     model = th.build_hsi_vit(tc, NUM_CLASSES, device="cpu", state_dict=from_jax_params(params, tc))
-    before = tfb.LAUNCHES
+    before = (tfb.TF32X3_LAUNCHES, tfb.TF32X3_CLUSTER_LAUNCHES, tfb.WGMMA_LAUNCHES)
     with torch.inference_mode():
         got = model.classify(torch.from_numpy(x)).numpy()
-    assert tfb.LAUNCHES == before  # CPU tensors take the plain version
+    # CPU tensors take the plain version
+    assert (tfb.TF32X3_LAUNCHES, tfb.TF32X3_CLUSTER_LAUNCHES, tfb.WGMMA_LAUNCHES) == before
     assert got.shape == (6, NUM_CLASSES)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 

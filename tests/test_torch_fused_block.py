@@ -43,8 +43,8 @@ def both(d, hid, seed):
 
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 5e-2)])
-@pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("s", [4, 9, 36])
+@pytest.mark.parametrize("s,d", [(s, d) for d in (64, 128) for s in (4, 9, 36)]
+                         + [(9, 256), (36, 256)])  # HSIMAE-L's width at its blocks_1 and fusion S
 def test_block_reference_matches_jax(s, d, dtype, tol):
     m, heads = 6, d // 16
     jp, tp = both(d, swiglu_hidden_dim(d), seed=s * 1000 + d)
@@ -79,9 +79,9 @@ def test_zero_padding_hidden_is_exact(d):
 def test_cpu_tensor_takes_plain_version_without_launch():
     _, tp = both(64, 172, seed=1)
     x = torch.randn(3, 9, 64, generator=torch.Generator().manual_seed(0))
-    before = tfb.LAUNCHES
+    before = tfb.TF32X3_CLUSTER_LAUNCHES
     out = tfb.fused_encoder_block(x, tp, 4)
-    assert tfb.LAUNCHES == before
+    assert tfb.TF32X3_CLUSTER_LAUNCHES == before
     torch.testing.assert_close(out, tfb.block_reference(x, tp, 4), rtol=0, atol=0)
 
 
