@@ -14,8 +14,9 @@ Phases, each of a fixed size; any failure exits non-zero:
    3xTF32 wgmma kernel (TF32 hi/lo pack), float32 at D 256 on the 3xTF32
    cluster kernel (its own hi/lo pack), bfloat16 on the bf16 wgmma kernel
    (bf16 pack), at the HSIMAE-B shapes (M cut to 4096) plus D=64 and D=256
-   (float32 at D 256 also at S 64, the longest, and at a tile count that
-   leaves a cluster with an empty CTA); then, at the full batch-4096 shapes
+   (float32 at D 256 at every cluster size, also at S 64, the longest, and
+   at a tile count that leaves a cluster with an empty CTA); then, at the
+   full batch-4096 shapes
    the main paths give the kernels (HSIMAE-B and HSIMAE-L, both dtypes),
    compared again and timed with CUDA events beside the plain version and
    the port's Block modules (cuBLAS products), one JSON line per case;
@@ -95,6 +96,7 @@ CHECK_SHAPES = [  # (M, S, D, hidden); M cut to 4096 rows
     (4095, 9, 256, 684),  # 585 row tiles: the last cluster of 2 pairs a tile with an empty CTA
 ]
 F32_CHECK_SHAPES = [(449, 64, 256, 684)]  # the longest S at D 256 (the bf16 kernel takes 40)
+CHECK_CLUSTERS = (1, 2, 4)  # cluster sizes the D 256 kernel is checked at (the wrapper's is 1)
 TOL = {"float32": 2e-5, "bfloat16": 5e-2}  # |kernel - ref| <= tol * max(1, |ref|)
 # the kernels, by route (stream dtype and width): name -> (dtype, source, launch counter)
 KERNELS = {
@@ -656,18 +658,24 @@ def main() -> int:
 
     checks = [(dtype, dname, shape) for dtype, dname in dnames.items() for shape in CHECK_SHAPES]
     checks += [(torch.float32, "float32", shape) for shape in F32_CHECK_SHAPES]
+    default_cluster = fb.CLUSTER_SIZE
     for dtype, dname, (m, s, d, hid) in checks:
         p = random_block(d, hid, gen, dev)
         x = torch.randn(m, s, d, generator=gen).to(dev, dtype)
         kernel = kernel_of(dname, d)
-        before = launch_counts(fb)
-        got = fb.fused_encoder_block(x, fb.kernel_weights(p, dtype), d // 16)
-        after = launch_counts(fb)
-        if {k: after[k] - before[k] for k in KERNELS} != {k: int(k == kernel) for k in KERNELS}:
-            fail(f"{dname} at D {d} did not launch {kernel} once: {before} -> {after}")
-        err = compare(got, fb.block_reference(x, p, d // 16), dname,
-                      {"kernel": kernel, "shape": [m, s, d], "dtype": dname})
-        max_err[kernel] = max(max_err[kernel], err)
+        w = fb.kernel_weights(p, dtype)
+        ref = fb.block_reference(x, p, d // 16)
+        for cluster in CHECK_CLUSTERS if kernel == "fused_block_tf32x3_cluster" else (None,):
+            fb.CLUSTER_SIZE = cluster or default_cluster
+            before = launch_counts(fb)
+            got = fb.fused_encoder_block(x, w, d // 16)
+            after = launch_counts(fb)
+            if {k: after[k] - before[k] for k in KERNELS} != {k: int(k == kernel) for k in KERNELS}:
+                fail(f"{dname} at D {d} did not launch {kernel} once: {before} -> {after}")
+            err = compare(got, ref, dname, {"kernel": kernel, "shape": [m, s, d], "dtype": dname,
+                                            **({"cluster": cluster} if cluster else {})})
+            max_err[kernel] = max(max_err[kernel], err)
+    fb.CLUSTER_SIZE = default_cluster
 
     # per batch of each main path's model: (kernel, model) -> summed times of its 21 launches
     keys = ("ms", "plain_ms", "modules_ms", "bound_ms", "bound_3xtf32_ms")
@@ -712,11 +720,10 @@ def main() -> int:
     # counts set to 0 just before it
     lines = []
     for name, (dname, source, _) in KERNELS.items():
-        by_model = {model: per_batch[name, model] for model in MAIN_SHAPES
-                    if (name, model) in per_batch}
+        by_model = {model: {k: v for k, v in per_batch[name, model].items()
+                            if name in TF32X3_KERNELS or k != "bound_3xtf32_ms"}
+                    for model in MAIN_SHAPES if (name, model) in per_batch}
         times = dict(next(iter(by_model.values())))
-        if name not in TF32X3_KERNELS:
-            times.pop("bound_3xtf32_ms")
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": "hsimae_tpu/ops/fused_block.py:158", "dtype": dname,
                  "launches": launches["cli.evaluate"][name]

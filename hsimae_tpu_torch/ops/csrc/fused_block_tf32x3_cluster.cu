@@ -142,14 +142,8 @@ __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
 }
 
-// Built with -DHSIMAE_WAIT_LIMIT=n, a wait that polls n times without the
-// phase completing traps (a launch error where a protocol fault would
-// otherwise hang the card); the default build waits without a limit.
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   uint32_t done;
-#ifdef HSIMAE_WAIT_LIMIT
-  long long polls = 0;
-#endif
   do {
     asm volatile(
         "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
@@ -157,22 +151,7 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "=r"(done)
         : "r"(bar), "r"(parity)
         : "memory");
-#ifdef HSIMAE_WAIT_LIMIT
-    if (!done && ++polls > (long long)(HSIMAE_WAIT_LIMIT)) __trap();
-#endif
   } while (!done);
-}
-
-// Whether the phase of the given parity has completed, without waiting.
-__device__ __forceinline__ bool mbar_test(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\nmbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
 }
 
 __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {

@@ -14,9 +14,9 @@ fallback), built by ``nvcc`` and bound with ``ctypes``
 * float32 at D 256: ``csrc/fused_block_tf32x3_cluster.cu``, the same
   arithmetic with attention by head group and the SwiGLU half by hidden
   tile (the D 128 kernel's tile does not fit in shared memory at that
-  width), its weight stream shared by a cluster of ``CLUSTER_SIZE`` CTAs
-  through multicast bulk copies; takes a :class:`Tf32ClusterPack` from
-  :func:`pack_block_tf32_cluster`;
+  width), its weight stream optionally shared by a cluster of
+  ``CLUSTER_SIZE`` CTAs through multicast bulk copies; takes a
+  :class:`Tf32ClusterPack` from :func:`pack_block_tf32_cluster`;
 * bfloat16: ``csrc/fused_block_wgmma.cu``, on the tensor cores (wgmma fed by
   bulk async copies through a shared-memory ring, persistent CTAs); takes a
   :class:`BlockPack`, the block's weights packed once by :func:`pack_block`.
@@ -53,8 +53,10 @@ WGMMA_LAUNCHES = 0
 SUPPORTED_D = (64, 128, 256)
 TF32X3_D = (64, 128)  # float32 widths of fused_block_tf32x3.cu
 CLUSTER_D = 256  # the float32 width of fused_block_tf32x3_cluster.cu
-# CTAs that share the D 256 kernel's weight stream (1, 2 or 4)
-CLUSTER_SIZE = 2
+# CTAs that share the D 256 kernel's weight stream through multicast (1, 2 or
+# 4). 1, the fastest on an H100 (PERF.md): the stream is bound by each SM's
+# refill latency, not by L2, so sharing it only couples the CTAs.
+CLUSTER_SIZE = 1
 HEAD_DIM = 16
 _DTYPES = (torch.float32, torch.bfloat16)
 

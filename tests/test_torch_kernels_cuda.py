@@ -173,7 +173,7 @@ def cluster_size():
 ])
 def test_tf32x3_cluster_kernel_matches_plain_version(card, cluster_size, m, s, hid, cluster):
     """The float32 kernel at D 256 against block_reference (2e-5 scaled), at
-    every cluster size it takes (2 is the wrapper's)."""
+    every cluster size it takes (the wrapper's is 1)."""
     tfb.CLUSTER_SIZE = cluster
     p = random_block(256, hid, seed=7 * s + hid)
     x = torch.randn(m, s, 256, generator=torch.Generator().manual_seed(m + s)).cuda()
