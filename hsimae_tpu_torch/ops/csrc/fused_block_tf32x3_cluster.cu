@@ -1,7 +1,8 @@
 // One fused pre-LN transformer block over [M, S, 256] float32 sequences
-// (HSIMAE-L's width), on Hopper's tensor cores in 3xTF32, the weight stream
-// shared by a cluster of CTAs through multicast bulk copies (sm_90a: wgmma,
-// cp.async.bulk .multicast::cluster, mbarriers, thread block clusters).
+// (HSIMAE-L's width), on Hopper's tensor cores in 3xTF32, its weight stream
+// shareable by a cluster of CTAs through multicast bulk copies (sm_90a:
+// wgmma, cp.async.bulk .multicast::cluster, mbarriers, thread block
+// clusters).
 //
 // Replaces the Pallas TPU kernel hsimae_tpu/ops/fused_block.py::_kernel
 // (math _block_math) for the float32 stream at D 256; D 64 and 128 run
@@ -26,33 +27,31 @@
 // group's slice of Wo: one, the groups' sums added in order; a hidden
 // tile's slice of W2: one, the tiles' sums added the same way).
 //
-// What bounds it on an H100: operations, and the weight stream. HSIMAE-L's
-// block (SwiGLU hidden 684, padded to 688) at batch 4096 does ~233-238 GFLOP,
-// ~700 GFLOP of TF32 work as three products (1.4 ms at 495 TFLOP/s). A
-// 64-row tile of whole sequences streams the whole hi + lo pack, 6.32 MB, so
-// a launch of 2,300-4,100 tiles pulls 15-26 GB from L2 if every CTA reads
-// its own copy: more than its arithmetic at the ~3.2 TB/s the D 128 kernel
-// reaches. And at D 256 the D 128 kernel's 64-row residual and full q/k/v
-// (266 KB) do not fit in 227 KB of shared memory. The design:
+// What bounds it on an H100. HSIMAE-L's block (SwiGLU hidden 684, padded to
+// 688) at batch 4096 does ~233-238 GFLOP, ~700 GFLOP of TF32 work as three
+// products (1.4 ms at 495 TFLOP/s); each 64-row tile streams the whole hi +
+// lo pack, 6.32 MB. Measured (PERF.md): neither the operations nor L2 nor
+// the weight bytes, but each warpgroup's own loop of A split, wgmma issue
+// and drain, and the CUDA-core work around the products. At D 256 the D 128
+// kernel's 64-row residual and full q/k/v (266 KB) do not fit in 227 KB of
+// shared memory. The design:
 //   * a CTA owns 64 rows of whole sequences (wgmma's M). Two consumer
 //     warpgroups split every product's output columns; warp w of either
-//     holds rows 16 (w % 4) .. + 15. Consumer thread 0 is also the weight
-//     stream's producer: while it waits for a stage to land it issues every
-//     stage that has come free. With no producer warp the CTA is 256
-//     threads, and ptxas may give each thread 255 registers, which the
-//     m64n128 accumulators need (with a producer warp or warpgroup, 9 or 12
-//     warps, ptxas held every thread to 168 and spilled);
+//     holds rows 16 (w % 4) .. + 15. There is no producer warp: with 256
+//     threads ptxas may give each thread 255 registers, which the m64n128
+//     sums need (a CTA of 9 or 12 warps is held to 168, and spilled);
 //   * attention runs by head group: q, k and v are computed for 4 heads (64
 //     columns) at a time into a [64, 68] buffer each, attention runs on them
 //     in f32 on the CUDA cores (one thread per row and head, logits in
 //     registers), o overwrites q, and o's K slice of Wo is summed in
 //     registers (m64n128 per warpgroup), then parked in the output rows in
-//     global memory (so no accumulator lives across the next group's
-//     products); the residual is updated once all four groups are in. Shared memory: a [64, 260]
-//     row tile (66.5 KB), one group's q/k/v (52 KB), the ring (96 KB);
-//   * the SwiGLU half runs by 64 hidden columns: [W1 | W3] on LN2(x) into a
+//     global memory (so no sum lives across the next group's products); the
+//     residual is updated once all four groups are in. Shared memory: a
+//     [64, 260] row tile (66.5 KB), one group's q/k/v (52 KB), the ring
+//     (96 KB);
+//   * the SwiGLU half runs by 64 hidden columns: [W1 | W3] on LN2(x1) into a
 //     gate tile [64, 68] (double-buffered in the q/k/v space), then that
-//     tile's slice of W2 summed in registers (m64n128 per warpgroup), then
+//     tile's slice of W2 summed in registers (m64n128 per warpgroup) and
 //     added to the sum over the hidden tiles;
 //   * LayerNorm is applied once, in place, to the row tile: it holds LN1(x),
 //     then LN2(x1). The residual itself is read again from global memory
@@ -64,24 +63,26 @@
 //   * B streams through a ring of three 32 KB stages of K atoms of 16
 //     float32 columns (64-byte rows, 64-byte swizzle), a stage's hi tiles
 //     then its lo tiles under one pair of barriers: one atom of q/k/v, Wo or
-//     W2 (up to 256 rows, 16 KB an image), two of [W1 | W3] (128 rows), so
-//     every stage carries about one stage's worth of wgmmas and two stages
-//     stay in flight behind the one being read;
-//   * a cluster of C CTAs (2 by default, or 4) on neighbouring SMs walks the
-//     row tiles C at a time and shares the ring: each CTA's producer issues
-//     1/C of every hi and lo tile as a cp.async.bulk multicast into the same
-//     stage of every CTA of the cluster, so the pack is read from L2 once
-//     per C tiles. A stage's "full" barrier expects the whole stage's bytes;
-//     its "empty" barrier counts the consumer warps of every CTA of the
-//     cluster (each releases the stage in every CTA: mapa + a remote
-//     arrive), so no CTA writes into a stage that a partner still reads. Both CTAs run the same
-//     number of tiles: the last group may pair a real tile with an empty
-//     one, which consumes the ring and stores nothing. The barriers are
-//     initialised and fenced before a cluster barrier, and a CTA leaves only
-//     after a second cluster barrier, once no partner can still arrive on
-//     its barriers;
-//   * the grid is persistent: as many clusters as cudaOccupancyMaxActiveClusters
-//     allows (at most one CTA per SM), each walking the tile groups.
+//     W2 (up to 256 rows, 16 KB an image), two of [W1 | W3] (128 rows). The
+//     consumer warp that releases a stage last refills it at once, so two
+//     stages stay in flight behind the one being read;
+//   * a cluster of C CTAs (1 by default; 2 or 4) on neighbouring SMs can
+//     share the stream: the CTAs walk the row tiles C at a time and each
+//     issues 1/C of every hi and lo tile as a cp.async.bulk multicast into
+//     the same stage of every CTA of the cluster, so the pack is read from
+//     L2 once per C tiles. A stage's "full" barrier expects the whole
+//     stage's bytes; its "empty" barrier counts the consumer warps of every
+//     CTA (each releases the stage in every CTA: mapa + a remote arrive),
+//     so no CTA writes into a stage that a partner still reads. All CTAs of
+//     a cluster run the same number of tiles: the last group may pair real
+//     tiles with empty ones, which consume the ring and store nothing. The
+//     barriers are initialised and fenced before a cluster barrier, and a
+//     CTA leaves only after a second cluster barrier, once no partner can
+//     still arrive on its barriers. On an H100 sharing is slower (the
+//     stream is not bound by L2), hence the default;
+//   * the grid is persistent: as many clusters as
+//     cudaOccupancyMaxActiveClusters allows (at most one CTA per SM), each
+//     walking the tile groups.
 //
 // Kept out of the hot paths: IEEE float division (a slow-path subroutine
 // around whose calls accumulators went to local memory in the D 128 kernel);

@@ -414,62 +414,43 @@ def _launch_wgmma(x: torch.Tensor, pack: BlockPack, num_heads: int) -> torch.Ten
     return out
 
 
-def _launch_tf32x3(x: torch.Tensor, pack: Tf32Pack, num_heads: int) -> torch.Tensor:
-    """The float32 3xTF32 tensor-core kernel (D 64 and 128)."""
-    global TF32X3_LAUNCHES
-    lib = _build.load_library("fused_block_tf32x3")
+def _launch_tf32x3(x: torch.Tensor, pack: Tf32Pack | Tf32ClusterPack, num_heads: int) -> torch.Tensor:
+    """A float32 3xTF32 tensor-core kernel: ``fused_block_tf32x3`` (D 64 and
+    128) for a :class:`Tf32Pack`, ``fused_block_tf32x3_cluster`` (D 256,
+    clusters of ``CLUSTER_SIZE`` CTAs) for a :class:`Tf32ClusterPack`."""
+    global TF32X3_LAUNCHES, TF32X3_CLUSTER_LAUNCHES
+    cluster = isinstance(pack, Tf32ClusterPack)
+    name = "fused_block_tf32x3_cluster" if cluster else "fused_block_tf32x3"
+    lib = _build.load_library(name)
+
+    def fn(suffix=""):
+        return getattr(lib, f"hsimae_{name}{suffix}")
+
     d = x.shape[-1]
-    _check(x, pack.params, num_heads, lib.hsimae_fused_block_tf32x3_max_seq(d))
+    _check(x, pack.params, num_heads, fn("_max_seq")(d))
     hp = padded_hidden(pack.params.w1.shape[-1], TF32_HIDDEN_MULTIPLE)
-    if hp > lib.hsimae_fused_block_tf32x3_max_hidden(d):
+    if hp > fn("_max_hidden")(d):
         raise ValueError(f"unsupported padded hidden width {hp} at D={d}")
-    n = lib.hsimae_fused_block_tf32x3_image_bytes(d, hp) // 4
-    for name, t, numel in (("hi", pack.hi, n), ("lo", pack.lo, n), ("vecs", pack.vecs, 9 * d + 2 * hp)):
+    n = fn("_image_bytes")(d, hp) // 4
+    for part, t, numel in (("hi", pack.hi, n), ("lo", pack.lo, n), ("vecs", pack.vecs, 9 * d + 2 * hp)):
         if t.dtype != torch.float32 or t.device != x.device or not t.is_contiguous() \
                 or t.numel() != numel or t.data_ptr() % 16:
-            raise ValueError(f"pack {name} must be a contiguous, 16-byte aligned float32 tensor "
+            raise ValueError(f"pack {part} must be a contiguous, 16-byte aligned float32 tensor "
                              f"of {numel} on {x.device}")
     m, s, _ = x.shape
     out = torch.empty_like(x)
     if m == 0:
         return out
     with torch.cuda.device(x.device):
-        rc = lib.hsimae_fused_block_tf32x3(x.data_ptr(), out.data_ptr(), pack.hi.data_ptr(),
-                                           pack.lo.data_ptr(), pack.vecs.data_ptr(), m, s, d, hp,
-                                           num_heads, _stream(x))
+        rc = fn()(x.data_ptr(), out.data_ptr(), pack.hi.data_ptr(), pack.lo.data_ptr(),
+                  pack.vecs.data_ptr(), m, s, d, hp, num_heads,
+                  *((CLUSTER_SIZE,) if cluster else ()), _stream(x))
     if rc != 0:
-        raise RuntimeError(f"fused block 3xTF32 kernel launch failed: cudaError_t {rc}")
-    TF32X3_LAUNCHES += 1
-    return out
-
-
-def _launch_tf32x3_cluster(x: torch.Tensor, pack: Tf32ClusterPack, num_heads: int) -> torch.Tensor:
-    """The float32 3xTF32 tensor-core kernel at D 256, its weight stream
-    shared by clusters of ``CLUSTER_SIZE`` CTAs."""
-    global TF32X3_CLUSTER_LAUNCHES
-    lib = _build.load_library("fused_block_tf32x3_cluster")
-    d = x.shape[-1]
-    _check(x, pack.params, num_heads, lib.hsimae_fused_block_tf32x3_cluster_max_seq(d))
-    hp = padded_hidden(pack.params.w1.shape[-1], TF32_HIDDEN_MULTIPLE)
-    if hp > lib.hsimae_fused_block_tf32x3_cluster_max_hidden(d):
-        raise ValueError(f"unsupported padded hidden width {hp} at D={d}")
-    n = lib.hsimae_fused_block_tf32x3_cluster_image_bytes(d, hp) // 4
-    for name, t, numel in (("hi", pack.hi, n), ("lo", pack.lo, n), ("vecs", pack.vecs, 9 * d + 2 * hp)):
-        if t.dtype != torch.float32 or t.device != x.device or not t.is_contiguous() \
-                or t.numel() != numel or t.data_ptr() % 16:
-            raise ValueError(f"pack {name} must be a contiguous, 16-byte aligned float32 tensor "
-                             f"of {numel} on {x.device}")
-    m, s, _ = x.shape
-    out = torch.empty_like(x)
-    if m == 0:
-        return out
-    with torch.cuda.device(x.device):
-        rc = lib.hsimae_fused_block_tf32x3_cluster(
-            x.data_ptr(), out.data_ptr(), pack.hi.data_ptr(), pack.lo.data_ptr(),
-            pack.vecs.data_ptr(), m, s, d, hp, num_heads, CLUSTER_SIZE, _stream(x))
-    if rc != 0:
-        raise RuntimeError(f"fused block 3xTF32 cluster kernel launch failed: cudaError_t {rc}")
-    TF32X3_CLUSTER_LAUNCHES += 1
+        raise RuntimeError(f"fused block {name} kernel launch failed: cudaError_t {rc}")
+    if cluster:
+        TF32X3_CLUSTER_LAUNCHES += 1
+    else:
+        TF32X3_LAUNCHES += 1
     return out
 
 
@@ -505,6 +486,6 @@ def fused_encoder_block(x: torch.Tensor, p: BlockParams | BlockPack | Tf32Pack |
         if not isinstance(p, Tf32ClusterPack):
             raise TypeError("the float32 kernel at D 256 takes packed weights: "
                             "pass pack_block_tf32_cluster(params)")
-        return _launch_tf32x3_cluster(x, p, num_heads)
+        return _launch_tf32x3(x, p, num_heads)
     _check(x, params, num_heads, max_seq=0)  # raises: no float32 kernel takes this input
     raise ValueError(f"no float32 kernel takes x of shape {tuple(x.shape)}")
