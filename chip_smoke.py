@@ -16,10 +16,10 @@ Phases, each of a fixed size; any failure exits non-zero:
    (bf16 pack), at the HSIMAE-B shapes (M cut to 4096) plus D=64 and D=256
    (float32 at D 256 at every cluster size, also at S 64, the longest, and
    at a tile count that leaves a cluster with an empty CTA); then, at the
-   full batch-4096 shapes
-   the main paths give the kernels (HSIMAE-B and HSIMAE-L, both dtypes),
-   compared again and timed with CUDA events beside the plain version and
-   the port's Block modules (cuBLAS products), one JSON line per case;
+   full batch-4096 shapes the main paths give the kernels (HSIMAE-B and
+   HSIMAE-L, both dtypes), compared again and timed with CUDA events beside
+   the plain version and the port's Block modules (cuBLAS products), one
+   JSON line per case;
 4. main path, float32: ``hsimae_tpu_torch.cli.evaluate.main`` classifies a
    145x145x200 synthetic scene (GWPCA to 32 bands) with HSIMAE-B, seeded
    random weights, batch 4096. The 3xTF32 kernel must launch 21 times per
