@@ -12,14 +12,16 @@ Phases, each of a fixed size; any failure exits non-zero:
    ``block_reference`` on the same seeded inputs, each route with the
    weights ``kernel_weights`` gives it: float32 at D 64 and 128 on the
    3xTF32 wgmma kernel (TF32 hi/lo pack), float32 at D 256 on the 3xTF32
-   cluster kernel (its own hi/lo pack), bfloat16 on the bf16 wgmma kernel
+   D 256 kernel (its own hi/lo pack), bfloat16 on the bf16 wgmma kernel
    (bf16 pack), at the HSIMAE-B shapes (M cut to 4096) plus D=64 and D=256
-   (float32 at D 256 at every cluster size, also at S 64, the longest, and
-   at a tile count that leaves a cluster with an empty CTA); then, at the
+   (float32 at D 256 also at S 64, the longest, and at an M whose last row
+   tile is partly filled); then, at the
    full batch-4096 shapes the main paths give the kernels (HSIMAE-B and
    HSIMAE-L, both dtypes), compared again and timed with CUDA events beside
    the plain version and the port's Block modules (cuBLAS products), one
-   JSON line per case;
+   JSON line per case, each read against the bound of the arithmetic the
+   kernel does (three TF32 products per float32 product for the float32
+   kernels, bf16 products for the bf16 one) and of the bytes it moves;
 4. main path, float32: ``hsimae_tpu_torch.cli.evaluate.main`` classifies a
    145x145x200 synthetic scene (GWPCA to 32 bands) with HSIMAE-B, seeded
    random weights, batch 4096. The 3xTF32 kernel must launch 21 times per
@@ -34,7 +36,7 @@ Phases, each of a fixed size; any failure exits non-zero:
    both dtypes;
 11. main path at HSIMAE-L's width (D 256, 16 heads, SwiGLU 684, depth 12,
    s_depth 9), full width and depth: phases 4-6 again with ``--model
-   HSIMAE-L`` on the same scene: float32 on the 3xTF32 cluster kernel (21
+   HSIMAE-L`` on the same scene: float32 on the 3xTF32 D 256 kernel (21
    launches a batch, the others never; map against the Block modules),
    bfloat16 on the wgmma kernel (21 a batch; map against
    ``block_reference``), warm loops and ``max_memory_allocated``;
@@ -73,8 +75,8 @@ import time
 from pathlib import Path
 
 # Published dense peaks of an H100 SXM (NVIDIA data sheet) at its 700 W limit.
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # f32 without tensor cores
-PEAK_TF32 = 495e12  # the 3xTF32 kernel does three TF32 products per f32 product
+PEAK_BF16 = 989e12
+PEAK_TF32 = 495e12  # the float32 kernels do three TF32 products per f32 product
 HBM_BYTES_PER_S = 3.35e12
 
 # HSIMAE-B: D 128, 8 heads, SwiGLU hidden 344; HSIMAE-L: D 256, 16 heads, 684
@@ -93,25 +95,24 @@ MAIN_SHAPES = {"HSIMAE-B": main_shapes(D_B), "HSIMAE-L": main_shapes(256)}
 CHECK_SHAPES = [  # (M, S, D, hidden); M cut to 4096 rows
     (4096, 9, 128, 344), (4096, 4, 128, 344), (4096, 36, 128, 344),
     (4096, 9, 64, 172), (4096, 36, 256, 684),
-    (4095, 9, 256, 684),  # 585 row tiles: the last cluster of 2 pairs a tile with an empty CTA
+    (4093, 9, 256, 684),  # 585 row tiles of 7 sequences, the last holding 5
 ]
 F32_CHECK_SHAPES = [(449, 64, 256, 684)]  # the longest S at D 256 (the bf16 kernel takes 40)
-CHECK_CLUSTERS = (1, 2, 4)  # cluster sizes the D 256 kernel is checked at (the wrapper's is 1)
 TOL = {"float32": 2e-5, "bfloat16": 5e-2}  # |kernel - ref| <= tol * max(1, |ref|)
 # the kernels, by route (stream dtype and width): name -> (dtype, source, launch counter)
 KERNELS = {
     "fused_block_tf32x3": ("float32", "hsimae_tpu_torch/ops/csrc/fused_block_tf32x3.cu",
                            "TF32X3_LAUNCHES"),
-    "fused_block_tf32x3_cluster": ("float32",
-                                   "hsimae_tpu_torch/ops/csrc/fused_block_tf32x3_cluster.cu",
-                                   "TF32X3_CLUSTER_LAUNCHES"),
+    "fused_block_tf32x3_d256": ("float32",
+                                   "hsimae_tpu_torch/ops/csrc/fused_block_tf32x3_d256.cu",
+                                   "TF32X3_D256_LAUNCHES"),
     "fused_block_wgmma": ("bfloat16", "hsimae_tpu_torch/ops/csrc/fused_block_wgmma.cu",
                           "WGMMA_LAUNCHES"),
 }
-TF32X3_KERNELS = ("fused_block_tf32x3", "fused_block_tf32x3_cluster")  # read against 3xTF32
+TF32X3_KERNELS = ("fused_block_tf32x3", "fused_block_tf32x3_d256")  # read against 3xTF32
 MAIN_KERNEL = {"float32": "fused_block_tf32x3", "bfloat16": "fused_block_wgmma"}  # HSIMAE-B
 MAIN_KERNELS = {"HSIMAE-B": MAIN_KERNEL,
-                "HSIMAE-L": {"float32": "fused_block_tf32x3_cluster", "bfloat16": "fused_block_wgmma"}}
+                "HSIMAE-L": {"float32": "fused_block_tf32x3_d256", "bfloat16": "fused_block_wgmma"}}
 
 SCENE_ARGV = ["--synthetic", "--synthetic-size", "145", "--synthetic-bands", "200",
               "--synthetic-classes", "16", "--num-classes", "17",
@@ -173,7 +174,7 @@ def kernel_of(dname: str, d: int) -> str:
 
     if dname == "bfloat16":
         return "fused_block_wgmma"
-    return "fused_block_tf32x3" if d in TF32X3_D else "fused_block_tf32x3_cluster"
+    return "fused_block_tf32x3" if d in TF32X3_D else "fused_block_tf32x3_d256"
 
 
 def launch_counts(fb) -> dict:
@@ -263,39 +264,23 @@ def time_ms(fn, iters: int, rounds: int = 3, warmup: int = 2) -> float:
     return times[len(times) // 2]
 
 
-def bounds(fb, dname: str, kernel: str, m: int, s: int, d: int, hid: int, esize: int, w):
-    """(bound_ms, bound_by, extra keys): operations over the rate of the
-    kernel's arithmetic against bytes over 3.35 TB/s. float32 gets both
-    bounds: on the CUDA cores (bound_ms) and as three TF32 products with
-    the hi + lo pack (bound_3xtf32_ms)."""
+def bounds(kernel: str, m: int, s: int, d: int, hid: int, esize: int, w):
+    """(bound_ms, bound_by, extra keys): the larger of the kernel's
+    operations over the peak rate of the arithmetic it does (the float32
+    kernels: three TF32 products per float32 product; the bf16 kernel: bf16
+    products) and the bytes it must move (x, the output, its weight pack)
+    over 3.35 TB/s."""
     flops, nbytes = block_cost(m, s, d, hid, esize, weight_bytes(w))
+    t_ops = (3 * flops / PEAK_TF32 if kernel in TF32X3_KERNELS else flops / PEAK_BF16) * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    if dname == "float32":
-        p32 = w if isinstance(w, fb.BlockParams) else w.params
-        f32_bytes = block_cost(m, s, d, hid, esize, weight_bytes(p32))[1]
-        t_ops = flops / PEAK_FLOPS[dname] * 1e3
-        bound = max(t_ops, f32_bytes / HBM_BYTES_PER_S * 1e3)
-        by = "operations" if t_ops >= f32_bytes / HBM_BYTES_PER_S * 1e3 else "bytes"
-        extra = {"gflop": flops / 1e9, "mbytes": f32_bytes / 1e6}
-        if kernel in TF32X3_KERNELS:
-            t3 = 3 * flops / PEAK_TF32 * 1e3
-            extra.update(bound_3xtf32_ms=max(t3, t_bytes),
-                         bound_3xtf32_by="operations" if t3 >= t_bytes else "bytes",
-                         mbytes_3xtf32=nbytes / 1e6)
-        return bound, by, extra
-    t_ops = flops / PEAK_FLOPS[dname] * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
             {"gflop": flops / 1e9, "mbytes": nbytes / 1e6})
 
 
-def l2_weight_mb(fb, kernel: str, m: int, s: int, d: int, w):
-    """Weight bytes a launch pulls from L2: the whole pack once per row tile,
-    or, for the cluster kernel, once per cluster of row tiles."""
+def l2_weight_mb(kernel: str, m: int, s: int, d: int, w):
+    """Weight bytes a launch pulls from L2: the whole pack once per row tile."""
     rows = 64 if kernel in TF32X3_KERNELS or d > 128 else 128
-    tiles = -(-m // (rows // s))
-    if kernel == "fused_block_tf32x3_cluster":
-        tiles = -(-tiles // fb.CLUSTER_SIZE)
-    return tiles * weight_bytes(w) / 1e6
+    return -(-m // (rows // s)) * weight_bytes(w) / 1e6
 
 
 def time_case(fb, dtype, dname: str, name: str, shape, gen, dev, **tags):
@@ -319,16 +304,11 @@ def time_case(fb, dtype, dname: str, name: str, shape, gen, dev, **tags):
         ms = time_ms(lambda: fb.fused_encoder_block(x, w, d // 16), iters=10)
         plain_ms = time_ms(lambda: fb.block_reference(x, p, d // 16), iters=3)
         modules_ms = time_ms(lambda: blk(x), iters=5)
-    bound_ms, bound_by, extra = bounds(fb, dname, kernel, m, s, d, hid, x.element_size(), w)
-    share = {"share_of_bound": bound_ms / ms}
-    if "bound_3xtf32_ms" in extra:  # the 3xTF32 kernel is read against its own arithmetic
-        share = {"share_of_bound": extra["bound_3xtf32_ms"] / ms, "share_of": "bound_3xtf32_ms"}
-    if kernel == "fused_block_tf32x3_cluster":
-        tags = {**tags, "cluster": fb.CLUSTER_SIZE}
+    bound_ms, bound_by, extra = bounds(kernel, m, s, d, hid, x.element_size(), w)
     row = {"kernel": kernel, "block": name, **tags, "shape": [m, s, d], "dtype": dname, "ms": ms,
            "plain_ms": plain_ms, "modules_ms": modules_ms, "bound_ms": bound_ms,
-           "bound_by": bound_by, **extra, **share,
-           "tflops": extra["gflop"] / ms, "l2_weight_mb": l2_weight_mb(fb, kernel, m, s, d, w)}
+           "bound_by": bound_by, **extra, "share_of_bound": bound_ms / ms,
+           "tflops": extra["gflop"] / ms, "l2_weight_mb": l2_weight_mb(kernel, m, s, d, w)}
     print(json.dumps(row), flush=True)
     return row, err
 
@@ -641,14 +621,10 @@ def main() -> int:
             if "Used " in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
     for name, widths in (("fused_block_wgmma", (64, 128, 256)), ("fused_block_tf32x3", (64, 128)),
-                         ("fused_block_tf32x3_cluster", (256,))):
+                         ("fused_block_tf32x3_d256", (256,))):
         smem = getattr(_build.load_library(name), f"hsimae_{name}_smem_bytes")
         print(f"  {name} dynamic shared memory per CTA: "
               + ", ".join(f"D {d}: {smem(d)} B" for d in widths), flush=True)
-    fits = _build.load_library("fused_block_tf32x3_cluster").hsimae_fused_block_tf32x3_cluster_max_clusters
-    print("  fused_block_tf32x3_cluster resident clusters (cudaOccupancyMaxActiveClusters): "
-          + ", ".join(f"of {c}: {fits(c)}" for c in (1, 2, 4))
-          + f"; the wrapper's cluster size: {fb.CLUSTER_SIZE}", flush=True)
 
     # ---- 3. kernels against plain version ----
     dev = torch.device("cuda")
@@ -658,27 +634,22 @@ def main() -> int:
 
     checks = [(dtype, dname, shape) for dtype, dname in dnames.items() for shape in CHECK_SHAPES]
     checks += [(torch.float32, "float32", shape) for shape in F32_CHECK_SHAPES]
-    default_cluster = fb.CLUSTER_SIZE
     for dtype, dname, (m, s, d, hid) in checks:
         p = random_block(d, hid, gen, dev)
         x = torch.randn(m, s, d, generator=gen).to(dev, dtype)
         kernel = kernel_of(dname, d)
         w = fb.kernel_weights(p, dtype)
-        ref = fb.block_reference(x, p, d // 16)
-        for cluster in CHECK_CLUSTERS if kernel == "fused_block_tf32x3_cluster" else (None,):
-            fb.CLUSTER_SIZE = cluster or default_cluster
-            before = launch_counts(fb)
-            got = fb.fused_encoder_block(x, w, d // 16)
-            after = launch_counts(fb)
-            if {k: after[k] - before[k] for k in KERNELS} != {k: int(k == kernel) for k in KERNELS}:
-                fail(f"{dname} at D {d} did not launch {kernel} once: {before} -> {after}")
-            err = compare(got, ref, dname, {"kernel": kernel, "shape": [m, s, d], "dtype": dname,
-                                            **({"cluster": cluster} if cluster else {})})
-            max_err[kernel] = max(max_err[kernel], err)
-    fb.CLUSTER_SIZE = default_cluster
+        before = launch_counts(fb)
+        got = fb.fused_encoder_block(x, w, d // 16)
+        after = launch_counts(fb)
+        if {k: after[k] - before[k] for k in KERNELS} != {k: int(k == kernel) for k in KERNELS}:
+            fail(f"{dname} at D {d} did not launch {kernel} once: {before} -> {after}")
+        err = compare(got, fb.block_reference(x, p, d // 16), dname,
+                      {"kernel": kernel, "shape": [m, s, d], "dtype": dname})
+        max_err[kernel] = max(max_err[kernel], err)
 
     # per batch of each main path's model: (kernel, model) -> summed times of its 21 launches
-    keys = ("ms", "plain_ms", "modules_ms", "bound_ms", "bound_3xtf32_ms")
+    keys = ("ms", "plain_ms", "modules_ms", "bound_ms")
     per_batch = {(k, model): dict.fromkeys(keys, 0.0)
                  for model, own in MAIN_KERNELS.items() for k in own.values()}
     bound_kinds = {k: set() for k in KERNELS}
@@ -690,7 +661,7 @@ def main() -> int:
                 max_err[row["kernel"]] = max(max_err[row["kernel"]], err)
                 bound_kinds[row["kernel"]].add(row["bound_by"])
                 for k in keys:
-                    per_batch[row["kernel"], model][k] += count * row.get(k, 0.0)
+                    per_batch[row["kernel"], model][k] += count * row[k]
             torch.cuda.empty_cache()
 
     # ---- 4, 5, 6. main path, HSIMAE-B, float32 then bfloat16, through the CLI ----
@@ -715,13 +686,12 @@ def main() -> int:
     # ---- 7. result ----
     # times: per batch of 21 launches of the model whose evaluate path runs
     # the kernel (HSIMAE-B for the D 128 3xTF32 kernel and the bf16 kernel,
-    # HSIMAE-L for the cluster kernel; the bf16 kernel's HSIMAE-L batch
+    # HSIMAE-L for the D 256 kernel; the bf16 kernel's HSIMAE-L batch
     # beside); launches: the evaluate paths' sum, and per path with the
     # counts set to 0 just before it
     lines = []
     for name, (dname, source, _) in KERNELS.items():
-        by_model = {model: {k: v for k, v in per_batch[name, model].items()
-                            if name in TF32X3_KERNELS or k != "bound_3xtf32_ms"}
+        by_model = {model: per_batch[name, model]
                     for model in MAIN_SHAPES if (name, model) in per_batch}
         times = dict(next(iter(by_model.values())))
         entry = {"name": name, "route": "cuda", "source": source,
@@ -731,15 +701,11 @@ def main() -> int:
                  "max_abs_err": max_err[name],
                  "launches_by_path": {path: n[name] for path, n in launches.items()},
                  **times, "per": f"batch of 21 launches of {next(iter(by_model))}",
-                 "widths": {"fused_block_tf32x3": [64, 128], "fused_block_tf32x3_cluster": [256],
+                 "widths": {"fused_block_tf32x3": [64, 128], "fused_block_tf32x3_d256": [256],
                             "fused_block_wgmma": [64, 128, 256]}[name]}
-        if name in TF32X3_KERNELS:
-            entry.update(share_of_bound=times["bound_3xtf32_ms"] / times["ms"],
-                         share_of="bound_3xtf32_ms")
+        entry["share_of_bound"] = times["bound_ms"] / times["ms"]
         if len(by_model) > 1:
             entry["per_batch_by_model"] = by_model
-        if name == "fused_block_tf32x3_cluster":
-            entry["cluster"] = fb.CLUSTER_SIZE
         entry["bound_by"] = "operations" if bound_kinds[name] == {"operations"} else "bytes"
         entry["library_ms"] = None
         lines.append(entry)

@@ -35,13 +35,12 @@ SIGNATURES = {
         "hsimae_fused_block_tf32x3_smem_bytes": (_I, [_I]),
         "hsimae_fused_block_tf32x3_image_bytes": (ctypes.c_longlong, [_I, _I]),
     },
-    "fused_block_tf32x3_cluster": {
-        "hsimae_fused_block_tf32x3_cluster": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
-        "hsimae_fused_block_tf32x3_cluster_max_seq": (_I, [_I]),
-        "hsimae_fused_block_tf32x3_cluster_max_hidden": (_I, [_I]),
-        "hsimae_fused_block_tf32x3_cluster_smem_bytes": (_I, [_I]),
-        "hsimae_fused_block_tf32x3_cluster_image_bytes": (ctypes.c_longlong, [_I, _I]),
-        "hsimae_fused_block_tf32x3_cluster_max_clusters": (_I, [_I]),
+    "fused_block_tf32x3_d256": {
+        "hsimae_fused_block_tf32x3_d256": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+        "hsimae_fused_block_tf32x3_d256_max_seq": (_I, [_I]),
+        "hsimae_fused_block_tf32x3_d256_max_hidden": (_I, [_I]),
+        "hsimae_fused_block_tf32x3_d256_smem_bytes": (_I, [_I]),
+        "hsimae_fused_block_tf32x3_d256_image_bytes": (ctypes.c_longlong, [_I, _I]),
     },
     "fused_block_wgmma": {
         "hsimae_fused_block_wgmma": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),

@@ -1,8 +1,6 @@
 // One fused pre-LN transformer block over [M, S, 256] float32 sequences
-// (HSIMAE-L's width), on Hopper's tensor cores in 3xTF32, its weight stream
-// shareable by a cluster of CTAs through multicast bulk copies (sm_90a:
-// wgmma, cp.async.bulk .multicast::cluster, mbarriers, thread block
-// clusters).
+// (HSIMAE-L's width), on Hopper's tensor cores in 3xTF32 (sm_90a: wgmma,
+// cp.async.bulk, mbarriers).
 //
 // Replaces the Pallas TPU kernel hsimae_tpu/ops/fused_block.py::_kernel
 // (math _block_math) for the float32 stream at D 256; D 64 and 128 run
@@ -18,7 +16,7 @@
 //
 // Precision, as in fused_block_tf32x3.cu: each product is three TF32
 // products, a_lo w_hi + a_hi w_lo + a_hi w_hi, every part rounded to TF32
-// (the weights once per model by ops/fused_block.py::pack_block_tf32_cluster,
+// (the weights once per model by ops/fused_block.py::pack_block_tf32_d256,
 // the activations in registers as the A operand is loaded); the tensor
 // cores truncate as they accumulate, so no accumulator takes a long chain
 // of wgmmas: every product runs as chains of at most 4 K atoms of 16 (24
@@ -66,23 +64,11 @@
 //     W2 (up to 256 rows, 16 KB an image), two of [W1 | W3] (128 rows). The
 //     consumer warp that releases a stage last refills it at once, so two
 //     stages stay in flight behind the one being read;
-//   * a cluster of C CTAs (1 by default; 2 or 4) on neighbouring SMs can
-//     share the stream: the CTAs walk the row tiles C at a time and each
-//     issues 1/C of every hi and lo tile as a cp.async.bulk multicast into
-//     the same stage of every CTA of the cluster, so the pack is read from
-//     L2 once per C tiles. A stage's "full" barrier expects the whole
-//     stage's bytes; its "empty" barrier counts the consumer warps of every
-//     CTA (each releases the stage in every CTA: mapa + a remote arrive),
-//     so no CTA writes into a stage that a partner still reads. All CTAs of
-//     a cluster run the same number of tiles: the last group may pair real
-//     tiles with empty ones, which consume the ring and store nothing. The
-//     barriers are initialised and fenced before a cluster barrier, and a
-//     CTA leaves only after a second cluster barrier, once no partner can
-//     still arrive on its barriers. On an H100 sharing is slower (the
-//     stream is not bound by L2), hence the default;
-//   * the grid is persistent: as many clusters as
-//     cudaOccupancyMaxActiveClusters allows (at most one CTA per SM), each
-//     walking the tile groups.
+//   * each CTA streams the whole pack once per row tile, from L2. Sharing
+//     the stream across a cluster of 2 or 4 CTAs by multicast bulk copies
+//     was slower on an H100 (PERF.md): L2 does not bound it;
+//   * the grid is persistent: one CTA per SM (shared memory allows no
+//     more), each walking the row tiles.
 //
 // Kept out of the hot paths: IEEE float division (a slow-path subroutine
 // around whose calls accumulators went to local memory in the D 128 kernel);
@@ -112,7 +98,6 @@ constexpr int kConsumers = 2;                          // consumer warpgroups
 constexpr int kConsumerThreads = 128 * kConsumers;
 constexpr int kConsumerWarps = kConsumerThreads / 32;
 constexpr int kThreads = kConsumerThreads;            // thread 0 also produces
-constexpr int kMaxCluster = 4;
 constexpr int kMaxHidden = 4096;
 constexpr int kLD = kD + 4;                            // residual row stride (floats): 4 mod 32
 constexpr int kLDQ = kGroupCols + 4;                   // q, k, v and gate tile row stride
@@ -164,17 +149,6 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
 }
 
-// One arrival on the barrier at the same shared offset as bar in the CTA of
-// the cluster with the given rank. Its ordering is the arriving thread's
-// own (no cluster-scope release): what it orders, the consumer's reads of a
-// slot by wgmma, is complete before the arrive (wgmma.wait_group), and the
-// write it allows is a bulk copy.
-__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t rank) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(bar), "r"(rank));
-  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];" ::"r"(remote) : "memory");
-}
-
 // Global -> shared bulk copy into this CTA; completion counted in bytes on
 // the mbarrier.
 __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
@@ -184,29 +158,6 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
           dst),
       "l"(src), "r"(bytes), "r"(bar)
       : "memory");
-}
-
-// The same into the same shared offsets of every CTA in mask, each of whose
-// barrier at bar's offset counts the bytes.
-__device__ __forceinline__ void bulk_load_multicast(uint32_t dst, const void* src, uint32_t bytes,
-                                                    uint32_t bar, uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
-      "[%0], [%1], %2, [%3], %4;" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar), "h"(mask)
-      : "memory");
-}
-
-// Every thread of every CTA of the cluster: arrive (release), then wait
-// (acquire).
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;" ::: "memory");
-}
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-  return r;
 }
 
 __device__ __forceinline__ void bar_sync(int id, int count) {
@@ -406,23 +357,20 @@ struct Wgmma<128> {
 };
 
 // The weight stream. The pack is a fixed sequence of ring stages (the order
-// above), streamed once per tile group; stage j of that sequence goes into
+// above), streamed once per row tile; stage j of that sequence goes into
 // ring stage j % kStages. A ring stage is refilled by whichever consumer
-// warp of the CTA releases its previous contents last (a counter per ring
-// stage in shared memory says which): once the stage's "empty" barrier
-// completes (in a cluster it also counts every partner CTA's warps), that
-// warp issues this CTA's 1/csize share of the next contents' hi and lo
-// tiles, as one bulk copy each, multicast into the same stage of every CTA
-// of the cluster. So a stage is refilled as soon as it is free.
+// warp releases its previous contents last (a counter per ring stage in
+// shared memory says which): once the stage's "empty" barrier completes,
+// that warp issues the next contents' hi and lo tiles, one bulk copy each.
+// So a stage is refilled as soon as it is free.
 struct Stream {
   const uint8_t* hi;
   const uint8_t* lo;
   uint32_t base;  // shared address of ring stage 0; the barriers at kBarOff
-  int* released;  // per ring stage: local warps that have released it, in shared memory
-  int csize, rank;
+  int* released;  // per ring stage: warps that have released it, in shared memory
   int hp;         // padded hidden width
   int nstages;    // ring stages the pack fills
-  int groups;     // tile groups this CTA streams the pack for
+  int tiles;      // row tiles this CTA streams the pack for
 
   __device__ __forceinline__ uint32_t full(int s) const { return base + kBarOff + 8 * s; }
   __device__ __forceinline__ uint32_t empty(int s) const {
@@ -462,68 +410,58 @@ struct Stream {
     const long long off = offset(a);
     const uint32_t dst = base + s * kStageBytes, bar = full(s);
     mbar_expect_tx(bar, 2 * n);
-    if (csize == 1) {
-      bulk_load(dst, hi + off, n, bar);
-      bulk_load(dst + kSlotBytes, lo + off, n, bar);
-    } else {
-      const uint16_t mask = (uint16_t)((1u << csize) - 1);
-      const int share = n / csize, at = rank * share;
-      bulk_load_multicast(dst + at, hi + off + at, share, bar, mask);
-      bulk_load_multicast(dst + kSlotBytes + at, lo + off + at, share, bar, mask);
-    }
+    bulk_load(dst, hi + off, n, bar);
+    bulk_load(dst + kSlotBytes, lo + off, n, bar);
   }
 };
 
 // A stage a consumer warp has taken: its shared address, ring stage and
-// phase, and which stage of the pack, in which tile group, it holds.
+// phase, and which stage of the pack, for which of the CTA's row tiles, it
+// holds.
 struct Slot {
   uint32_t addr;
   int stage;
   uint32_t phase;
-  int atom, grp;
+  int atom, tile;
 };
 
 // Ring position of a consumer warp; every consumer warp walks the same
-// sequence of stages, in every CTA of the cluster.
+// sequence of stages.
 struct Ring {
   const Stream& st;
   int stage;
   uint32_t phase;
-  int atom, grp;  // what the next take() holds
+  int atom, tile;  // what the next take() holds
   // waits until the current stage has landed and moves on
   __device__ __forceinline__ Slot take() {
     WAIT_CLOCK(W_RING, mbar_wait(st.full(stage), phase))
-    const Slot sl{st.base + stage * kStageBytes, stage, phase, atom, grp};
+    const Slot sl{st.base + stage * kStageBytes, stage, phase, atom, tile};
     if (++stage == kStages) {
       stage = 0;
       phase ^= 1;
     }
     if (++atom == st.nstages) {
       atom = 0;
-      ++grp;
+      ++tile;
     }
     return sl;
   }
-  // one arrival per consumer warp, in every CTA of the cluster, on the
-  // slot's empty barrier; the CTA's last warp to arrive refills the stage
+  // one arrival per consumer warp on the slot's empty barrier; the last
+  // warp to arrive refills the stage
   __device__ __forceinline__ void release(const Slot& sl) const {
     __syncwarp();
     if ((threadIdx.x & 31) == 0) {
       const uint32_t bar = st.empty(sl.stage);
-      if (st.csize == 1) {
-        mbar_arrive(bar);
-      } else {
-        for (int r = 0; r < st.csize; ++r) mbar_arrive_cluster(bar, r);
-      }
+      mbar_arrive(bar);
       if (atomicAdd(st.released + sl.stage, 1) == kConsumerWarps - 1) {
         atomicExch(st.released + sl.stage, 0);
-        int a = sl.atom + kStages, g = sl.grp;
+        int a = sl.atom + kStages, tile = sl.tile;
         if (a >= st.nstages) {
           a -= st.nstages;
-          ++g;
+          ++tile;
         }
-        if (g < st.groups) {
-          mbar_wait(bar, sl.phase);  // every CTA's warps are done with the slot
+        if (tile < st.tiles) {
+          mbar_wait(bar, sl.phase);  // every warp is done with the slot
           st.issue(sl.stage, a);
         }
       }
@@ -1029,37 +967,30 @@ __device__ __forceinline__ void attention_any(float* qs, const float* ks, const 
 
 
 __global__ void __launch_bounds__(kThreads, 1)
-    fused_block_tf32x3_cluster_kernel(const float* __restrict__ x, float* __restrict__ out,
-                                      const uint8_t* __restrict__ hi, const uint8_t* __restrict__ lo,
-                                      const float* __restrict__ vecs, int S, int Hp, int nseq,
-                                      int ntiles, long long total_rows, int csize) {
+    fused_block_tf32x3_d256_kernel(const float* __restrict__ x, float* __restrict__ out,
+                                   const uint8_t* __restrict__ hi, const uint8_t* __restrict__ lo,
+                                   const float* __restrict__ vecs, int S, int Hp, int nseq,
+                                   int ntiles, long long total_rows) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int rank = (int)cluster_rank();
   const int R = nseq * S;  // rows of whole sequences per tile
-  const int group0 = blockIdx.x / csize, ngroups_grid = gridDim.x / csize;
-  const int ngroups = (ntiles + csize - 1) / csize;  // tile groups of csize, the last maybe short
-  const int my_groups = group0 < ngroups ? (ngroups - 1 - group0) / ngroups_grid + 1 : 0;
-  const Stream stream{hi, lo, smem_u32(smem), reinterpret_cast<int*>(smem + kCountOff), csize, rank,
-                      Hp,
+  // the grid is at most ntiles CTAs, so every CTA has a tile
+  const int my_tiles = (ntiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1;
+  const Stream stream{hi, lo, smem_u32(smem), reinterpret_cast<int*>(smem + kCountOff), Hp,
                       kGroups * (kKA + kGroupKA) + (Hp + kHidTile - 1) / kHidTile * (kKA / 2) +
                           (Hp + kAtomK - 1) / kAtomK,
-                      my_groups};
+                      my_tiles};
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(stream.full(s), 1);
-      // one arrival per consumer warp of every CTA in the cluster
-      mbar_init(stream.empty(s), kConsumerWarps * csize);
+      mbar_init(stream.empty(s), kConsumerWarps);  // one arrival per consumer warp
       stream.released[s] = 0;
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int a = 0; a < kStages; ++a) stream.issue(a, a);  // the first kStages stages of the stream
   }
-  // every CTA's barriers are initialised before any multicast or remote arrive
-  cluster_sync();
-  if (threadIdx.x == 0 && my_groups > 0) {  // the first kStages stages of the stream
-    for (int a = 0; a < kStages; ++a) stream.issue(a, a);
-  }
+  __syncthreads();  // the barriers are initialised before any thread waits on them
 
   // warpgroup wg takes output columns [128 wg, + 128) of Wo and W2, its 96
   // columns of each group's q/k/v, and its half of each [W1 | W3] tile;
@@ -1082,11 +1013,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 #ifdef HSIMAE_PHASE_CLOCKS
   long long t0_ = clock64();
 #endif
-  for (int grp = group0; grp < ngroups; grp += ngroups_grid) {
-    const int tile = grp * csize + rank;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     const long long row0 = (long long)tile * R;
-    // an empty tile (past the last) consumes the ring and stores nothing
-    const int nvalid = tile < ntiles ? (int)min((long long)R, total_rows - row0) : 0;
+    const int nvalid = (int)min((long long)R, total_rows - row0);
     const float* xr = x + row0 * kD;
     float* orow = out + row0 * kD;
     WAIT_CLOCK(W_BAR, bar_sync(bar_all, kConsumerThreads))  // the previous tile is done with xs
@@ -1172,9 +1101,6 @@ __global__ void __launch_bounds__(kThreads, 1)
     residual_final(wacc, orow, n0, vecs + V_B2 * kD, nvalid);  // out = x1 + (W2 h + b2)
     PHASE_MARK(8)
   }
-  // no CTA leaves while a partner may still write into its ring or arrive on
-  // its barriers
-  cluster_sync();
 }
 
 long long image_bytes(int Hp) {
@@ -1183,39 +1109,13 @@ long long image_bytes(int Hp) {
          2LL * Hp * kKA * kAtomK * 4 + hka * kWideAtomBytes;
 }
 
-cudaLaunchConfig_t launch_config(int cluster, int grid, cudaStream_t stream,
-                                 cudaLaunchAttribute* attr) {
-  cudaLaunchConfig_t cfg = {};
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.gridDim = dim3(grid);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = kSmem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
-// Clusters of `cluster` CTAs that fit on the card at once (0 on error).
-int max_clusters(int cluster, int* n) {
-  cudaError_t err = cudaFuncSetAttribute(fused_block_tf32x3_cluster_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchAttribute attr[1];
-  cudaLaunchConfig_t cfg = launch_config(cluster, cluster, nullptr, attr);
-  return (int)cudaOccupancyMaxActiveClusters(n, (const void*)fused_block_tf32x3_cluster_kernel, &cfg);
-}
-
 }  // namespace
 
 extern "C" {
 
 #ifdef HSIMAE_PHASE_CLOCKS
 // Copies the 16 phase-clock sums to host and zeroes them (synchronises).
-int hsimae_fused_block_tf32x3_cluster_phase_clocks(unsigned long long* host) {
+int hsimae_fused_block_tf32x3_d256_phase_clocks(unsigned long long* host) {
   cudaError_t err = cudaDeviceSynchronize();
   if (err == cudaSuccess) err = cudaMemcpyFromSymbol(host, g_phase_clocks, sizeof(g_phase_clocks));
   unsigned long long zero[16] = {0};
@@ -1225,54 +1125,43 @@ int hsimae_fused_block_tf32x3_cluster_phase_clocks(unsigned long long* host) {
 #endif
 
 // Longest sequence the kernel takes at width D (0 if D is unsupported).
-int hsimae_fused_block_tf32x3_cluster_max_seq(int D) { return D == kD ? kMaxSeq : 0; }
+int hsimae_fused_block_tf32x3_d256_max_seq(int D) { return D == kD ? kMaxSeq : 0; }
 
 // Dynamic shared memory a CTA of the kernel takes at width D, in bytes.
-int hsimae_fused_block_tf32x3_cluster_smem_bytes(int D) { return D == kD ? kSmem : 0; }
+int hsimae_fused_block_tf32x3_d256_smem_bytes(int D) { return D == kD ? kSmem : 0; }
 
 // Widest padded SwiGLU hidden axis the kernel takes at width D.
-int hsimae_fused_block_tf32x3_cluster_max_hidden(int D) { return D == kD ? kMaxHidden : 0; }
+int hsimae_fused_block_tf32x3_d256_max_hidden(int D) { return D == kD ? kMaxHidden : 0; }
 
-// Bytes of one packed image (hi or lo) the kernel streams per tile group.
-long long hsimae_fused_block_tf32x3_cluster_image_bytes(int D, int Hp) {
+// Bytes of one packed image (hi or lo) the kernel streams per row tile.
+long long hsimae_fused_block_tf32x3_d256_image_bytes(int D, int Hp) {
   return D == kD ? image_bytes(Hp) : 0;
 }
 
-// Clusters of `cluster` CTAs (1, 2 or 4) resident on the current card at
-// once, as cudaOccupancyMaxActiveClusters reports them: the most the launch
-// starts. Returns -1 on error.
-int hsimae_fused_block_tf32x3_cluster_max_clusters(int cluster) {
-  if (cluster != 1 && cluster != 2 && cluster != kMaxCluster) return -1;
-  int n = 0;
-  return max_clusters(cluster, &n) == 0 ? n : -1;
-}
-
-// x, out: [M, S, 256] float32. hi, lo: pack_block_tf32_cluster's TF32 weight
+// x, out: [M, S, 256] float32. hi, lo: pack_block_tf32_d256's TF32 weight
 // images; vecs: its f32 LayerNorm and bias vectors. Hp: the padded hidden
-// width (a multiple of 8). cluster: CTAs sharing the weight stream (1, 2 or
-// 4). Returns the cudaError_t of the launch (0 on success); does not
-// synchronise.
-int hsimae_fused_block_tf32x3_cluster(const void* x, void* out, const void* hi, const void* lo,
-                                      const void* vecs, int M, int S, int D, int Hp, int num_heads,
-                                      int cluster, void* stream) {
+// width (a multiple of 8). Returns the cudaError_t of the launch (0 on
+// success); does not synchronise.
+int hsimae_fused_block_tf32x3_d256(const void* x, void* out, const void* hi, const void* lo,
+                                   const void* vecs, int M, int S, int D, int Hp, int num_heads,
+                                   void* stream) {
   if (M <= 0 || S <= 0 || S > kMaxSeq || D != kD || num_heads * kHeadDim != D || Hp <= 0 ||
-      Hp % 8 != 0 || Hp > kMaxHidden || (cluster != 1 && cluster != 2 && cluster != kMaxCluster))
+      Hp % 8 != 0 || Hp > kMaxHidden)
     return (int)cudaErrorInvalidValue;
-  int fit = 0;
-  cudaError_t err = (cudaError_t)max_clusters(cluster, &fit);
+  cudaError_t err = cudaFuncSetAttribute(fused_block_tf32x3_d256_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return (int)err;
-  if (fit <= 0) return (int)cudaErrorInvalidConfiguration;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
   const int nseq = kRows / S;
   const int ntiles = (M + nseq - 1) / nseq;
-  const int ngroups = (ntiles + cluster - 1) / cluster;
-  const int clusters = ngroups < fit ? ngroups : fit;
-  cudaLaunchAttribute attr[1];
-  cudaLaunchConfig_t cfg = launch_config(cluster, clusters * cluster, static_cast<cudaStream_t>(stream), attr);
-  err = cudaLaunchKernelEx(&cfg, fused_block_tf32x3_cluster_kernel, static_cast<const float*>(x),
-                           static_cast<float*>(out), static_cast<const uint8_t*>(hi),
-                           static_cast<const uint8_t*>(lo), static_cast<const float*>(vecs), S, Hp,
-                           nseq, ntiles, (long long)M * S, cluster);
-  if (err != cudaSuccess) return (int)err;
+  const int grid = ntiles < sms ? ntiles : sms;
+  fused_block_tf32x3_d256_kernel<<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<float*>(out), static_cast<const uint8_t*>(hi),
+      static_cast<const uint8_t*>(lo), static_cast<const float*>(vecs), S, Hp, nseq, ntiles,
+      (long long)M * S);
   return (int)cudaGetLastError();
 }
 

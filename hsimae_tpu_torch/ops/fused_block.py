@@ -11,12 +11,10 @@ fallback), built by ``nvcc`` and bound with ``ctypes``
   which holds the 2e-5 check that one TF32 product does not); takes a
   :class:`Tf32Pack`, the weights split once into TF32 hi and lo images by
   :func:`pack_block_tf32`;
-* float32 at D 256: ``csrc/fused_block_tf32x3_cluster.cu``, the same
+* float32 at D 256: ``csrc/fused_block_tf32x3_d256.cu``, the same
   arithmetic with attention by head group and the SwiGLU half by hidden
   tile (the D 128 kernel's tile does not fit in shared memory at that
-  width), its weight stream optionally shared by a cluster of
-  ``CLUSTER_SIZE`` CTAs through multicast bulk copies; takes a
-  :class:`Tf32ClusterPack` from :func:`pack_block_tf32_cluster`;
+  width); takes a :class:`Tf32D256Pack` from :func:`pack_block_tf32_d256`;
 * bfloat16: ``csrc/fused_block_wgmma.cu``, on the tensor cores (wgmma fed by
   bulk async copies through a shared-memory ring, persistent CTAs); takes a
   :class:`BlockPack`, the block's weights packed once by :func:`pack_block`.
@@ -28,7 +26,7 @@ TPU compile workaround) has no counterpart.
 * :func:`block_reference` is the plain PyTorch version of the block math.
 * :func:`fused_encoder_block` is the wrapper: on a CPU tensor it returns the
   plain version; on a CUDA tensor it launches the route's kernel or raises.
-  ``TF32X3_LAUNCHES``, ``TF32X3_CLUSTER_LAUNCHES`` and ``WGMMA_LAUNCHES``
+  ``TF32X3_LAUNCHES``, ``TF32X3_D256_LAUNCHES`` and ``WGMMA_LAUNCHES``
   count launches of the float32 kernels at D 64/128 and D 256 and of the
   bfloat16 kernel.
 """
@@ -47,16 +45,12 @@ from hsimae_tpu_torch.ops import _build
 # float32 3xTF32 kernels at D 64/128 and at D 256, and the bfloat16 wgmma
 # kernel.
 TF32X3_LAUNCHES = 0
-TF32X3_CLUSTER_LAUNCHES = 0
+TF32X3_D256_LAUNCHES = 0
 WGMMA_LAUNCHES = 0
 
 SUPPORTED_D = (64, 128, 256)
 TF32X3_D = (64, 128)  # float32 widths of fused_block_tf32x3.cu
-CLUSTER_D = 256  # the float32 width of fused_block_tf32x3_cluster.cu
-# CTAs that share the D 256 kernel's weight stream through multicast (1, 2 or
-# 4). 1, the fastest on an H100 (PERF.md): the stream is bound by each SM's
-# refill latency, not by L2, so sharing it only couples the CTAs.
-CLUSTER_SIZE = 1
+TF32X3_WIDE_D = 256  # the float32 width of fused_block_tf32x3_d256.cu
 HEAD_DIM = 16
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -84,7 +78,7 @@ _TF32_ATOM_K = 32
 # second), then that group's K slice of Wo (all 256 output rows); per 64
 # hidden columns, the [W1 | W3] tile as in the 3xTF32 pack, then that
 # tile's K slice of W2.
-_CLUSTER_ATOM_K = 16
+_D256_ATOM_K = 16
 _GROUP_COLS = 64
 
 
@@ -150,9 +144,9 @@ class Tf32Pack(NamedTuple):
     vecs: torch.Tensor  # float32, 1-D: as BlockPack.vecs
 
 
-class Tf32ClusterPack(NamedTuple):
-    """One D 256 block's weights as the cluster kernel reads them, built
-    once by :func:`pack_block_tf32_cluster`: as :class:`Tf32Pack`, in that
+class Tf32D256Pack(NamedTuple):
+    """One D 256 block's weights as the D 256 kernel reads them, built
+    once by :func:`pack_block_tf32_d256`: as :class:`Tf32Pack`, in that
     kernel's tile order and swizzle."""
 
     params: BlockParams
@@ -268,7 +262,7 @@ def _hidden_cuts(h0: int, h1: int) -> tuple:
     return h0, h0 + (h1 - h0 + 15) // 16 * 8, h1
 
 
-def _cluster_image(p: BlockParams, hp: int) -> torch.Tensor:
+def _d256_image(p: BlockParams, hp: int) -> torch.Tensor:
     """The float32 image of the D 256 kernel's pack (order above), the hidden
     axis zero-padded to ``hp``."""
     pad = hp - p.w1.shape[1]
@@ -276,7 +270,7 @@ def _cluster_image(p: BlockParams, hp: int) -> torch.Tensor:
     w1t = F.pad(p.w1.t(), (0, 0, 0, pad))  # [hp, d]
     w3t = F.pad(p.w3.t(), (0, 0, 0, pad))
     w2t = F.pad(p.w2.t(), (0, pad))  # [d, hp]
-    g, half, k = _GROUP_COLS, _GROUP_COLS // 2, _CLUSTER_ATOM_K
+    g, half, k = _GROUP_COLS, _GROUP_COLS // 2, _D256_ATOM_K
     parts = []
     for c0 in range(0, p.wq.shape[0], g):
         parts += [torch.cat([wq[c0:c0 + g], wv[c0:c0 + half], wk[c0:c0 + g], wv[c0 + half:c0 + g]]),
@@ -289,23 +283,23 @@ def _cluster_image(p: BlockParams, hp: int) -> torch.Tensor:
 
 
 @torch.no_grad()
-def pack_block_tf32_cluster(p: BlockParams) -> Tf32ClusterPack:
-    """Pack one D 256 block for the cluster kernel, on the weights' device:
+def pack_block_tf32_d256(p: BlockParams) -> Tf32D256Pack:
+    """Pack one D 256 block for the D 256 kernel, on the weights' device:
     the float32 image in that kernel's order (above), K atoms of 16 columns
     with the 64-byte swizzle, the hidden axis zero-padded to a multiple of
     8, split into TF32 ``hi`` and ``lo`` as :func:`pack_block_tf32` does.
     Done once per model."""
     hp = padded_hidden(p.w1.shape[-1], TF32_HIDDEN_MULTIPLE)
-    image = _cluster_image(p, hp)
+    image = _d256_image(p, hp)
     hi = rna_tf32(image)
-    return Tf32ClusterPack(p, hi, rna_tf32(image - hi), _vecs(p, hp))
+    return Tf32D256Pack(p, hi, rna_tf32(image - hi), _vecs(p, hp))
 
 
-def kernel_weights(p: BlockParams, dtype: torch.dtype) -> BlockParams | BlockPack | Tf32Pack | Tf32ClusterPack:
+def kernel_weights(p: BlockParams, dtype: torch.dtype) -> BlockParams | BlockPack | Tf32Pack | Tf32D256Pack:
     """The weights in the form the kernel of stream ``dtype`` at the
     block's width takes: a :class:`BlockPack` for bfloat16, a
     :class:`Tf32Pack` for float32 at D 64 and 128, a
-    :class:`Tf32ClusterPack` for float32 at D 256. At a width no kernel
+    :class:`Tf32D256Pack` for float32 at D 256. At a width no kernel
     takes, the :class:`BlockParams` themselves (the CPU's plain version
     runs them; a CUDA tensor raises)."""
     if dtype == torch.bfloat16:
@@ -313,8 +307,8 @@ def kernel_weights(p: BlockParams, dtype: torch.dtype) -> BlockParams | BlockPac
     d = p.wq.shape[0]
     if d in TF32X3_D:
         return pack_block_tf32(p)
-    if d == CLUSTER_D:
-        return pack_block_tf32_cluster(p)
+    if d == TF32X3_WIDE_D:
+        return pack_block_tf32_d256(p)
     return p
 
 
@@ -414,13 +408,13 @@ def _launch_wgmma(x: torch.Tensor, pack: BlockPack, num_heads: int) -> torch.Ten
     return out
 
 
-def _launch_tf32x3(x: torch.Tensor, pack: Tf32Pack | Tf32ClusterPack, num_heads: int) -> torch.Tensor:
+def _launch_tf32x3(x: torch.Tensor, pack: Tf32Pack | Tf32D256Pack, num_heads: int) -> torch.Tensor:
     """A float32 3xTF32 tensor-core kernel: ``fused_block_tf32x3`` (D 64 and
-    128) for a :class:`Tf32Pack`, ``fused_block_tf32x3_cluster`` (D 256,
-    clusters of ``CLUSTER_SIZE`` CTAs) for a :class:`Tf32ClusterPack`."""
-    global TF32X3_LAUNCHES, TF32X3_CLUSTER_LAUNCHES
-    cluster = isinstance(pack, Tf32ClusterPack)
-    name = "fused_block_tf32x3_cluster" if cluster else "fused_block_tf32x3"
+    128) for a :class:`Tf32Pack`, ``fused_block_tf32x3_d256`` (D 256) for a
+    :class:`Tf32D256Pack`."""
+    global TF32X3_LAUNCHES, TF32X3_D256_LAUNCHES
+    wide = isinstance(pack, Tf32D256Pack)
+    name = "fused_block_tf32x3_d256" if wide else "fused_block_tf32x3"
     lib = _build.load_library(name)
 
     def fn(suffix=""):
@@ -443,18 +437,17 @@ def _launch_tf32x3(x: torch.Tensor, pack: Tf32Pack | Tf32ClusterPack, num_heads:
         return out
     with torch.cuda.device(x.device):
         rc = fn()(x.data_ptr(), out.data_ptr(), pack.hi.data_ptr(), pack.lo.data_ptr(),
-                  pack.vecs.data_ptr(), m, s, d, hp, num_heads,
-                  *((CLUSTER_SIZE,) if cluster else ()), _stream(x))
+                  pack.vecs.data_ptr(), m, s, d, hp, num_heads, _stream(x))
     if rc != 0:
         raise RuntimeError(f"fused block {name} kernel launch failed: cudaError_t {rc}")
-    if cluster:
-        TF32X3_CLUSTER_LAUNCHES += 1
+    if wide:
+        TF32X3_D256_LAUNCHES += 1
     else:
         TF32X3_LAUNCHES += 1
     return out
 
 
-def fused_encoder_block(x: torch.Tensor, p: BlockParams | BlockPack | Tf32Pack | Tf32ClusterPack,
+def fused_encoder_block(x: torch.Tensor, p: BlockParams | BlockPack | Tf32Pack | Tf32D256Pack,
                         num_heads: int) -> torch.Tensor:
     """Apply one transformer block to ``[M, S, D]`` sequences.
 
@@ -462,8 +455,8 @@ def fused_encoder_block(x: torch.Tensor, p: BlockParams | BlockPack | Tf32Pack |
     launches, on the current stream (no synchronisation), the kernel of the
     route fixed by dtype and width, with the weights in the form
     :func:`kernel_weights` gives: float32 at D 64 and 128 the 3xTF32 wgmma
-    kernel (a :class:`Tf32Pack`), float32 at D 256 the cluster kernel (a
-    :class:`Tf32ClusterPack`), bfloat16 the wgmma kernel (a
+    kernel (a :class:`Tf32Pack`), float32 at D 256 the D 256 kernel (a
+    :class:`Tf32D256Pack`), bfloat16 the wgmma kernel (a
     :class:`BlockPack`). Anything else raises."""
     params = p if isinstance(p, BlockParams) else p.params
     if x.device.type == "cpu":
@@ -482,10 +475,10 @@ def fused_encoder_block(x: torch.Tensor, p: BlockParams | BlockPack | Tf32Pack |
             raise TypeError("the float32 kernel at D 64 and 128 takes packed weights: "
                             "pass pack_block_tf32(params)")
         return _launch_tf32x3(x, p, num_heads)
-    if d == CLUSTER_D:
-        if not isinstance(p, Tf32ClusterPack):
+    if d == TF32X3_WIDE_D:
+        if not isinstance(p, Tf32D256Pack):
             raise TypeError("the float32 kernel at D 256 takes packed weights: "
-                            "pass pack_block_tf32_cluster(params)")
+                            "pass pack_block_tf32_d256(params)")
         return _launch_tf32x3(x, p, num_heads)
     _check(x, params, num_heads, max_seq=0)  # raises: no float32 kernel takes this input
     raise ValueError(f"no float32 kernel takes x of shape {tuple(x.shape)}")

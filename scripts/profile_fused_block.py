@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Where the time goes inside the fused-block wgmma kernels, on one card.
 
-    python3 scripts/profile_fused_block.py [--kernel wgmma|tf32x3|cluster|both|all]
+    python3 scripts/profile_fused_block.py [--kernel wgmma|tf32x3|d256|both|all]
 
 Builds ``ops/csrc/fused_block_wgmma.cu`` (bfloat16),
 ``ops/csrc/fused_block_tf32x3.cu`` (float32 at D 64/128, 3xTF32) and
-``ops/csrc/fused_block_tf32x3_cluster.cu`` (float32 at D 256, clusters of
-``fused_block.CLUSTER_SIZE``) a second time with ``-DHSIMAE_PHASE_CLOCKS``,
-all nvcc runs at once (``both`` is wgmma and tf32x3, ``all`` adds cluster):
+``ops/csrc/fused_block_tf32x3_d256.cu`` (float32 at D 256) a second time
+with ``-DHSIMAE_PHASE_CLOCKS``, all nvcc runs at once (``both`` is wgmma and
+tf32x3, ``all`` adds d256):
 the first consumer thread of every CTA then adds the SM clocks it spends in
 each phase of a row tile to a device counter. For the HSIMAE-B main-path
 shapes at batch 4096, HSIMAE-L's at D 256 and the D 64 fusion shape (each
@@ -32,7 +32,7 @@ the fly-normalised residual, their epilogues, the barrier), ``attention``,
 ``out_proj``, ``ln2`` (statistics and the barrier before the hidden tile),
 ``w13``, ``w2``, ``store`` (the output rows).
 
-Cluster (D 256) phases, summed over the four head groups and the hidden
+D 256 phases, summed over the four head groups and the hidden
 tiles: ``tile_start``, ``x_ln1``, ``qkv`` (each group's q/k/v product, its
 epilogue and barriers), ``attention``, ``out_proj`` (each group's slice of
 Wo, and the residual add), ``ln2``, ``w13`` (each gate tile and its
@@ -65,19 +65,19 @@ PROFILES = {
     "tf32x3": {"lib": "fused_block_tf32x3", "widths": (64, 128),
                "phases": ("tile_start", "x_ln1", "qkv", "attention", "out_proj", "ln2", "w13",
                           "w2", "store")},
-    "cluster": {"lib": "fused_block_tf32x3_cluster", "widths": (256,),
-                "phases": ("tile_start", "x_ln1", "qkv", "attention", "out_proj", "ln2", "w13",
-                           "w2", "store"),
-                "waits": ("ring_wait", "wgmma_wait", "bar_wait")},
+    "d256": {"lib": "fused_block_tf32x3_d256", "widths": (256,),
+             "phases": ("tile_start", "x_ln1", "qkv", "attention", "out_proj", "ln2", "w13",
+                        "w2", "store"),
+             "waits": ("ring_wait", "wgmma_wait", "bar_wait")},
 }
-CHOICES = {"wgmma": ("wgmma",), "tf32x3": ("tf32x3",), "cluster": ("cluster",),
-           "both": ("wgmma", "tf32x3"), "all": ("wgmma", "tf32x3", "cluster")}
+CHOICES = {"wgmma": ("wgmma",), "tf32x3": ("tf32x3",), "d256": ("d256",),
+           "both": ("wgmma", "tf32x3"), "all": ("wgmma", "tf32x3", "d256")}
 
 
 def phase_weight_bytes(kernel: str, d: int, hp: int) -> dict:
     """Bytes of packed weights each product phase takes from the ring per row
     tile (both images for the 3xTF32 kernels)."""
-    if kernel == "cluster":  # K atoms of 16; q/k/v by head group of 64 columns
+    if kernel == "d256":  # K atoms of 16; q/k/v by head group of 64 columns
         atom = d * 16 * 4 * 2  # a 256-row atom, hi and lo
         return {"qkv": 3 * d * d * 4 * 2, "out_proj": d // 16 * atom,
                 "w13": 2 * hp * d * 4 * 2, "w2": -(-hp // 16) * atom}
@@ -123,15 +123,12 @@ def main() -> int:
                 continue
             p = random_block(d, swiglu_hidden_dim(d), gen, "cuda")
             stream = torch.cuda.current_stream().cuda_stream
-            extra = ()
-            if kernel in ("tf32x3", "cluster"):
+            if kernel in ("tf32x3", "d256"):
                 pack = fb.kernel_weights(p, torch.float32)
                 x = torch.randn(m, s, d, generator=gen).cuda()
                 hp = fb.padded_hidden(p.w1.shape[-1], fb.TF32_HIDDEN_MULTIPLE)
                 ptrs = (pack.hi.data_ptr(), pack.lo.data_ptr(), pack.vecs.data_ptr())
                 rows = 64
-                if kernel == "cluster":
-                    extra = (fb.CLUSTER_SIZE,)
             else:
                 pack = fb.pack_block(p)
                 x = torch.randn(m, s, d, generator=gen).to("cuda", torch.bfloat16)
@@ -142,8 +139,7 @@ def main() -> int:
             fn = getattr(probe, f"hsimae_{prof['lib']}")
 
             def run_probe():
-                rc = fn(x.data_ptr(), out_probe.data_ptr(), *ptrs, m, s, d, hp, d // 16, *extra,
-                        stream)
+                rc = fn(x.data_ptr(), out_probe.data_ptr(), *ptrs, m, s, d, hp, d // 16, stream)
                 if rc != 0:
                     raise RuntimeError(f"instrumented kernel launch failed: cudaError_t {rc}")
 
@@ -164,8 +160,7 @@ def main() -> int:
             waits = {w: float(buf[9 + i]) / tiles / 1e3 for i, w in enumerate(prof.get("waits", ()))}
             wbytes = phase_weight_bytes(kernel, d, hp)
             out[f"{kernel}:{label}"] = {
-                "kernel": prof["lib"], "shape": [m, s, d], "cluster": extra[0] if extra else None,
-                "ms": plain_ms,
+                "kernel": prof["lib"], "shape": [m, s, d], "ms": plain_ms,
                 "ms_instrumented": probed_ms, "instrumented_max_abs_diff": probe_diff,
                 "row_tiles": tiles, "kclk_per_tile": kclk,
                 "share": {ph: v / total for ph, v in kclk.items()},

@@ -2,7 +2,6 @@
 """Time the fused-block kernels of one checkout of the port by two methods.
 
     python3 scripts/time_fused_block.py [--root DIR] [--label NAME] [--width 128|256]
-                                        [--clusters 2[,4,...]]
 
 Imports ``hsimae_tpu_torch`` from ``--root`` (default: this repo), so the
 same timer can read an older checkout of the port, unpacked into a
@@ -22,10 +21,8 @@ case with the kernel's time by
 then a last line with the card's name and power limit. Each kernel gets its
 weights in the form that checkout's wrapper takes: ``kernel_weights`` where
 the checkout has it (the float32 3xTF32 packs, the bfloat16 pack), else
-``pack_block`` for bfloat16 and ``BlockParams`` for float32. Where the
-checkout's float32 kernel at D 256 shares its weight stream across a
-cluster of CTAs (``fused_block.CLUSTER_SIZE``), float32 at that width is
-timed once per size in ``--clusters``. Needs a CUDA card.
+``pack_block`` for bfloat16 and ``BlockParams`` for float32. Needs a CUDA
+card.
 """
 
 from __future__ import annotations
@@ -85,8 +82,6 @@ def main() -> int:
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--label", default="")
     ap.add_argument("--width", type=int, choices=sorted(MODELS), default=128)
-    ap.add_argument("--clusters", default="2",
-                    help="comma-separated cluster sizes for float32 at D 256 (1, 2, 4)")
     args = ap.parse_args()
     d, (model, heads, hidden) = args.width, MODELS[args.width]
     sys.path.insert(0, str(Path(args.root).resolve()))
@@ -116,27 +111,18 @@ def main() -> int:
         return fb.pack_block(p) if hasattr(fb, "pack_block") and dtype == torch.bfloat16 else p
 
     gen = torch.Generator().manual_seed(0)
-    clustered = d == 256 and hasattr(fb, "CLUSTER_SIZE")
-    default_cluster = fb.CLUSTER_SIZE if clustered else None
     for dtype in (torch.float32, torch.bfloat16):
         for name, (m, s, _) in shapes(d).items():
             p = weights(gen)
             w = kernel_weights(p, dtype)
             x = torch.randn(m, s, d, generator=gen).to("cuda", dtype)
-            sizes = [int(c) for c in args.clusters.split(",")] \
-                if clustered and dtype == torch.float32 else [None]
-            for cluster in sizes:
-                if cluster is not None:
-                    fb.CLUSTER_SIZE = cluster
-                with torch.inference_mode():
-                    run = lambda: fb.fused_encoder_block(x, w, heads)  # noqa: E731
-                    row = {"label": args.label, "model": model, "block": name,
-                           "shape": [m, s, d], "dtype": str(dtype).removeprefix("torch."),
-                           "cluster": cluster, "single_call_ms": single_call_ms(run),
-                           "back_to_back_ms": back_to_back_ms(run)}
-                print(json.dumps(row), flush=True)
-            if clustered:
-                fb.CLUSTER_SIZE = default_cluster
+            with torch.inference_mode():
+                run = lambda: fb.fused_encoder_block(x, w, heads)  # noqa: E731
+                row = {"label": args.label, "model": model, "block": name,
+                       "shape": [m, s, d], "dtype": str(dtype).removeprefix("torch."),
+                       "single_call_ms": single_call_ms(run),
+                       "back_to_back_ms": back_to_back_ms(run)}
+            print(json.dumps(row), flush=True)
             del x, p, w
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()

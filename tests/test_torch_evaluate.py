@@ -60,11 +60,11 @@ def test_classify_logits_match_jax(head_mode, size, use_pallas):
                                                     method=jh.HSIMAE.classify))(params, x))
     assert tc.use_kernel  # the port's inference path goes through the fused-block wrapper
     model = th.build_hsi_vit(tc, NUM_CLASSES, device="cpu", state_dict=from_jax_params(params, tc))
-    before = (tfb.TF32X3_LAUNCHES, tfb.TF32X3_CLUSTER_LAUNCHES, tfb.WGMMA_LAUNCHES)
+    before = (tfb.TF32X3_LAUNCHES, tfb.TF32X3_D256_LAUNCHES, tfb.WGMMA_LAUNCHES)
     with torch.inference_mode():
         got = model.classify(torch.from_numpy(x)).numpy()
     # CPU tensors take the plain version
-    assert (tfb.TF32X3_LAUNCHES, tfb.TF32X3_CLUSTER_LAUNCHES, tfb.WGMMA_LAUNCHES) == before
+    assert (tfb.TF32X3_LAUNCHES, tfb.TF32X3_D256_LAUNCHES, tfb.WGMMA_LAUNCHES) == before
     assert got.shape == (6, NUM_CLASSES)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 

@@ -79,9 +79,9 @@ def test_zero_padding_hidden_is_exact(d):
 def test_cpu_tensor_takes_plain_version_without_launch():
     _, tp = both(64, 172, seed=1)
     x = torch.randn(3, 9, 64, generator=torch.Generator().manual_seed(0))
-    before = tfb.TF32X3_CLUSTER_LAUNCHES
+    before = (tfb.TF32X3_LAUNCHES, tfb.TF32X3_D256_LAUNCHES, tfb.WGMMA_LAUNCHES)
     out = tfb.fused_encoder_block(x, tp, 4)
-    assert tfb.TF32X3_CLUSTER_LAUNCHES == before
+    assert (tfb.TF32X3_LAUNCHES, tfb.TF32X3_D256_LAUNCHES, tfb.WGMMA_LAUNCHES) == before
     torch.testing.assert_close(out, tfb.block_reference(x, tp, 4), rtol=0, atol=0)
 
 

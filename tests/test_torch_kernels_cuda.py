@@ -11,8 +11,8 @@ another order), bf16 5e-2 (a different f32 sum can round to a neighbouring
 bf16 value).
 
 float32 at D 64 and 128 runs the 3xTF32 kernel on its pack
-(``TF32X3_LAUNCHES``), float32 at D 256 the 3xTF32 cluster kernel on its
-pack (``TF32X3_CLUSTER_LAUNCHES``), bfloat16 the wgmma kernel on packed
+(``TF32X3_LAUNCHES``), float32 at D 256 the 3xTF32 D 256 kernel on its
+pack (``TF32X3_D256_LAUNCHES``), bfloat16 the wgmma kernel on packed
 weights (``WGMMA_LAUNCHES``).
 """
 
@@ -37,7 +37,7 @@ def random_block(d: int, hid: int, seed: int) -> tfb.BlockParams:
 
 
 def counts() -> tuple:
-    return tfb.TF32X3_LAUNCHES, tfb.TF32X3_CLUSTER_LAUNCHES, tfb.WGMMA_LAUNCHES
+    return tfb.TF32X3_LAUNCHES, tfb.TF32X3_D256_LAUNCHES, tfb.WGMMA_LAUNCHES
 
 
 def route(dtype, d: int) -> tuple:
@@ -49,7 +49,7 @@ def route(dtype, d: int) -> tuple:
 
 def library_of(d: int) -> str:
     """The float32 kernel's library at width d."""
-    return "fused_block_tf32x3" if d in tfb.TF32X3_D else "fused_block_tf32x3_cluster"
+    return "fused_block_tf32x3" if d in tfb.TF32X3_D else "fused_block_tf32x3_d256"
 
 
 def scaled_err(got, ref) -> float:
@@ -83,7 +83,7 @@ def test_fused_block_kernel_matches_plain_version(card, m, s, d, dtype, tol):
 @pytest.mark.parametrize("d", [64, 128, 256])
 def test_longest_sequence_the_kernel_reports(card, d):
     """The float32 kernel library's own limit at each width (the 3xTF32
-    library at D 64 and 128, the cluster one at D 256): S = max runs and
+    library at D 64 and 128, the D 256 one at D 256): S = max runs and
     matches the plain version, S = max + 1 is refused before any launch."""
     from hsimae_tpu_torch.ops import _build
 
@@ -115,9 +115,9 @@ def test_fused_block_kernel_rejects_unsupported_on_card(card):
     with pytest.raises(TypeError, match="pack_block_tf32"):  # float32 at D 128 takes only its pack
         tfb.fused_encoder_block(torch.zeros(2, 9, 128, device="cuda"), p, 8)
     p256 = random_block(256, 684, seed=0)
-    with pytest.raises(TypeError, match="pack_block_tf32_cluster"):  # and at D 256 only its own
+    with pytest.raises(TypeError, match="pack_block_tf32_d256"):  # and at D 256 only its own
         tfb.fused_encoder_block(torch.zeros(2, 9, 256, device="cuda"), p256, 16)
-    with pytest.raises(TypeError, match="pack_block_tf32_cluster"):
+    with pytest.raises(TypeError, match="pack_block_tf32_d256"):
         tfb.fused_encoder_block(torch.zeros(2, 9, 256, device="cuda"), tfb.pack_block_tf32(p), 16)
     assert counts() == before
 
@@ -152,33 +152,22 @@ def _sms() -> int:
     return torch.cuda.get_device_properties(0).multi_processor_count
 
 
-@pytest.fixture
-def cluster_size():
-    """Restores ``fused_block.CLUSTER_SIZE`` after a test that sets it."""
-    default = tfb.CLUSTER_SIZE
-    yield
-    tfb.CLUSTER_SIZE = default
-
-
 @pytest.mark.cuda
-@pytest.mark.parametrize("cluster", [2, 1, 4])
 @pytest.mark.parametrize("m,s,hid", [
     *[(301, s, 684) for s in (1, 4, 9, 36)],  # ragged M at the model's S; 301 at S 9 is 43 tiles
     (77, 36, 684), (7, 64, 684),  # one sequence a tile; the longest sequence the kernel takes
     (3001, 4, 684),  # 188 row tiles: the persistent loop wraps
-    (5, 9, 684),  # one tile: its partners in the cluster are empty
+    (5, 9, 684),  # one tile: a grid of one CTA
     # padded hidden widths whose last [W1 | W3] tile is 8, 40 or 56 columns wide, a last W2
     # atom of one K step of 8
     (60, 9, 200), (60, 9, 104), (60, 9, 120), (60, 9, 8),
 ])
-def test_tf32x3_cluster_kernel_matches_plain_version(card, cluster_size, m, s, hid, cluster):
-    """The float32 kernel at D 256 against block_reference (2e-5 scaled), at
-    every cluster size it takes (the wrapper's is 1)."""
-    tfb.CLUSTER_SIZE = cluster
+def test_tf32x3_d256_kernel_matches_plain_version(card, m, s, hid):
+    """The float32 kernel at D 256 against block_reference (2e-5 scaled)."""
     p = random_block(256, hid, seed=7 * s + hid)
     x = torch.randn(m, s, 256, generator=torch.Generator().manual_seed(m + s)).cuda()
     before = counts()
-    got = tfb.fused_encoder_block(x, tfb.pack_block_tf32_cluster(p), 16)
+    got = tfb.fused_encoder_block(x, tfb.pack_block_tf32_d256(p), 16)
     ref = tfb.block_reference(x, p, 16)
     torch.cuda.synchronize()
     assert counts() == (before[0], before[1] + 1, before[2])
@@ -189,18 +178,12 @@ def test_tf32x3_cluster_kernel_matches_plain_version(card, cluster_size, m, s, h
 
 
 @pytest.mark.cuda
-def test_cluster_grid_shapes_of_the_cases(card):
-    """The cluster cases above are what they claim on this card: an odd
-    number of 64-row tiles for (301, 9) (43: the last cluster of 2 pairs a
-    tile with an empty one), more tile groups than resident clusters for
-    (3001, 4), and clusters of 2 and 4 that fit."""
-    from hsimae_tpu_torch.ops import _build
-
-    lib = _build.load_library("fused_block_tf32x3_cluster")
-    fits = {c: lib.hsimae_fused_block_tf32x3_cluster_max_clusters(c) for c in (1, 2, 4)}
-    assert fits[1] == _sms() and 0 < fits[4] <= fits[2] <= _sms() // 2
-    assert -(-301 // (64 // 9)) % 2 == 1
-    assert -(-3001 // (64 // 4)) > 2 * fits[2]
+def test_d256_grid_shapes_of_the_cases(card):
+    """The D 256 cases above are what they claim on this card: more 64-row
+    tiles than SMs for (3001, 4), so CTAs walk several tiles, and a last
+    tile only partly filled for (301, 4) and (301, 1)."""
+    assert -(-3001 // (64 // 4)) > _sms()
+    assert 301 % (64 // 4) and 301 % 64
 
 
 @pytest.mark.cuda
@@ -277,9 +260,9 @@ def test_bf16_model_launches_only_the_wgmma_kernel(card):
 
 
 @pytest.mark.cuda
-def test_f32_hsimae_l_model_launches_only_the_cluster_kernel(card):
+def test_f32_hsimae_l_model_launches_only_the_d256_kernel(card):
     """HSIMAE-L in float32 on the card: every block through the D 256
-    cluster kernel and no other, logits close to the same model with
+    kernel and no other, logits close to the same model with
     block_reference per block (21 blocks of <= 2e-5 each: 5e-4 scaled)."""
     from hsimae_tpu_torch import config as tcfg
     from hsimae_tpu_torch.models import hsimae as th

@@ -311,10 +311,10 @@ def test_eval_forward_matches_jax_inference_path(case, use_kernel):
     x = imgs(5, 12)
     loss, pred, mask, _ = jax_forward(jc.replace(use_pallas=True), params, x, 3, 6, train=False)
     model = port_model(tc.replace(use_kernel=use_kernel), params, train=False)
-    before = (tfb.TF32X3_CLUSTER_LAUNCHES, tfb.TF32X3_LAUNCHES, tfb.WGMMA_LAUNCHES)
+    before = (tfb.TF32X3_D256_LAUNCHES, tfb.TF32X3_LAUNCHES, tfb.WGMMA_LAUNCHES)
     with torch.inference_mode():
         got = model.forward_pretrain(torch.from_numpy(x), 3, 6, grid=grid_of(mask, tc))
-    assert (tfb.TF32X3_CLUSTER_LAUNCHES, tfb.TF32X3_LAUNCHES, tfb.WGMMA_LAUNCHES) == before
+    assert (tfb.TF32X3_D256_LAUNCHES, tfb.TF32X3_LAUNCHES, tfb.WGMMA_LAUNCHES) == before
     assert bool(model._kernel_params) == use_kernel  # the encoder stacks, never the decoder
     assert all(name in th.ENCODER_STACKS for name, _ in model._kernel_params)
     np.testing.assert_allclose(got[0].item(), loss, rtol=1e-5)

@@ -1,8 +1,8 @@
 """The float32 kernels' arithmetic and weight packs, on the CPU
 (``hsimae_tpu_torch.ops.fused_block.pack_block_tf32`` and
-``pack_block_tf32_cluster``, and the 3xTF32 products of
+``pack_block_tf32_d256``, and the 3xTF32 products of
 ``csrc/fused_block_tf32x3.cu`` at D 64/128 and
-``csrc/fused_block_tf32x3_cluster.cu`` at D 256).
+``csrc/fused_block_tf32x3_d256.cu`` at D 256).
 
 * A plain PyTorch emulation of the kernel's arithmetic (each of the wgmma
   products q/k/v, out-proj, W1/W3 and W2 as ``a_lo w_hi + a_hi w_lo + a_hi
@@ -41,8 +41,8 @@ TOL = 2e-5
 CASES = [(288, 9, 128, 344), (288, 4, 128, 344), (288, 36, 128, 344), (288, 9, 64, 172),
          (216, 36, 256, 684), (216, 9, 256, 684)]
 ATOM_K = 32  # float32 K columns of one 128-byte swizzle atom
-CLUSTER_ATOM_K = 16  # the D 256 kernel's: one 64-byte swizzle atom
-CHAIN_K = 4 * CLUSTER_ATOM_K  # K of one of its wgmma chains
+D256_ATOM_K = 16  # the D 256 kernel's: one 64-byte swizzle atom
+CHAIN_K = 4 * D256_ATOM_K  # K of one of its wgmma chains
 HID_TILE = 64
 GROUP = 64  # q/k/v columns of one head group in the D 256 kernel
 
@@ -85,8 +85,8 @@ def matmul_tf32(a: torch.Tensor, w: torch.Tensor, terms: int, acc=None) -> torch
         return a_lo @ w_hi + a_hi @ w_lo + a_hi @ w_hi
     for k0 in range(0, a.shape[1], CHAIN_K):
         part = torch.zeros_like(acc)
-        for k1 in range(k0, min(k0 + CHAIN_K, a.shape[1]), CLUSTER_ATOM_K):
-            k = slice(k1, k1 + CLUSTER_ATOM_K)
+        for k1 in range(k0, min(k0 + CHAIN_K, a.shape[1]), D256_ATOM_K):
+            k = slice(k1, k1 + D256_ATOM_K)
             part = part + (a_lo[:, k] @ w_hi[k] + a_hi[:, k] @ w_lo[k] + a_hi[:, k] @ w_hi[k])
         acc = acc + part
     return acc
@@ -117,7 +117,7 @@ def emulated_block(x: torch.Tensor, p: tfb.BlockParams, heads: int, terms: int) 
     return (x + (matmul_tf32(h, p.w2, terms) + p.b2)).reshape(m, s, d)
 
 
-def emulated_block_cluster(x: torch.Tensor, p: tfb.BlockParams, heads: int,
+def emulated_block_d256(x: torch.Tensor, p: tfb.BlockParams, heads: int,
                            terms: int) -> torch.Tensor:
     """The D 256 kernel's arithmetic in plain PyTorch, in its order: per
     head group of 64 columns q/k/v, attention and the group's K slice of
@@ -171,7 +171,7 @@ def test_3xtf32_arithmetic_holds_the_float32_check(rows, s, d, hid):
     x = torch.from_numpy(np.random.default_rng(d + s).standard_normal((rows // s, s, d))
                          .astype(np.float32))
     ref = tfb.block_reference(x, p, d // 16)
-    emulate = emulated_block_cluster if d == tfb.CLUSTER_D else emulated_block
+    emulate = emulated_block_d256 if d == tfb.TF32X3_WIDE_D else emulated_block
     assert scaled_err(emulate(x, p, d // 16, terms=3), ref) <= TOL
     # one TF32 product misses the same check: why the kernel issues three
     assert scaled_err(emulate(x, p, d // 16, terms=1), ref) > 20 * TOL
@@ -214,7 +214,7 @@ def hidden_segments(h0: int, hidden_pad: int) -> list:
     return [sg for sg in segs if sg[2]]
 
 
-def cluster_pack_layout(d: int, hidden_pad: int) -> list:
+def d256_pack_layout(d: int, hidden_pad: int) -> list:
     """The D 256 kernel's tile order, written out independently of the
     pack, as :func:`pack_layout` lists it, with K atoms of 16 columns: per
     head group of 64 columns from c0, the rows q[c0:+64], v[c0:+32],
@@ -225,12 +225,12 @@ def cluster_pack_layout(d: int, hidden_pad: int) -> list:
     for c0 in range(0, d, GROUP):
         segs = [("wq", c0, GROUP), ("wv", c0, GROUP // 2), ("wk", c0, GROUP),
                 ("wv", c0 + GROUP // 2, GROUP // 2)]
-        tiles += [(segs, k0) for k0 in range(0, d, CLUSTER_ATOM_K)]
-        tiles += [([("wo", 0, d)], k0) for k0 in range(c0, c0 + GROUP, CLUSTER_ATOM_K)]
+        tiles += [(segs, k0) for k0 in range(0, d, D256_ATOM_K)]
+        tiles += [([("wo", 0, d)], k0) for k0 in range(c0, c0 + GROUP, D256_ATOM_K)]
     for h0 in range(0, hidden_pad, HID_TILE):
-        tiles += [(hidden_segments(h0, hidden_pad), k0) for k0 in range(0, d, CLUSTER_ATOM_K)]
+        tiles += [(hidden_segments(h0, hidden_pad), k0) for k0 in range(0, d, D256_ATOM_K)]
         h1 = min(h0 + HID_TILE, hidden_pad)
-        tiles += [([("w2", 0, d)], k0) for k0 in range(h0, h1, CLUSTER_ATOM_K)]
+        tiles += [([("w2", 0, d)], k0) for k0 in range(h0, h1, D256_ATOM_K)]
     return tiles
 
 
@@ -265,13 +265,13 @@ def unpack_image(image: torch.Tensor, d: int, hp: int, layout=pack_layout, atom_
                                    (64, 8), (64, 100), (128, 36), (128, 120),
                                    (256, swiglu_hidden_dim(256)), (256, 8), (256, 100), (256, 120)])
 def test_tf32_pack_is_the_split_weights_in_the_kernels_order(d, hid):
-    """At D 64 and 128 the 3xTF32 kernel's pack, at D 256 the cluster
+    """At D 64 and 128 the 3xTF32 kernel's pack, at D 256 the D 256
     kernel's, as ``kernel_weights`` gives them for float32."""
     p = random_block(d, hid, seed=d + hid)
     pack = tfb.kernel_weights(p, torch.float32)
-    if d == tfb.CLUSTER_D:
-        assert type(pack) is tfb.Tf32ClusterPack
-        layout, atom_k, unswizzle = cluster_pack_layout, CLUSTER_ATOM_K, tfb.swizzle64
+    if d == tfb.TF32X3_WIDE_D:
+        assert type(pack) is tfb.Tf32D256Pack
+        layout, atom_k, unswizzle = d256_pack_layout, D256_ATOM_K, tfb.swizzle64
     else:
         assert type(pack) is tfb.Tf32Pack
         layout, atom_k, unswizzle = pack_layout, ATOM_K, tfb.swizzle128
@@ -362,19 +362,19 @@ def test_cpu_tensor_with_a_tf32_pack_takes_plain_version_without_launch():
     p = random_block(128, 344, seed=5)
     pack = tfb.pack_block_tf32(p)
     x = torch.from_numpy(np.random.default_rng(5).standard_normal((4, 9, 128)).astype(np.float32))
-    before = (tfb.TF32X3_LAUNCHES, tfb.TF32X3_CLUSTER_LAUNCHES, tfb.WGMMA_LAUNCHES)
+    before = (tfb.TF32X3_LAUNCHES, tfb.TF32X3_D256_LAUNCHES, tfb.WGMMA_LAUNCHES)
     out = tfb.fused_encoder_block(x, pack, 8)
-    assert (tfb.TF32X3_LAUNCHES, tfb.TF32X3_CLUSTER_LAUNCHES, tfb.WGMMA_LAUNCHES) == before
+    assert (tfb.TF32X3_LAUNCHES, tfb.TF32X3_D256_LAUNCHES, tfb.WGMMA_LAUNCHES) == before
     torch.testing.assert_close(out, tfb.block_reference(x, p, 8), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("d,dtype,kind", [(64, torch.float32, tfb.Tf32Pack),
                                           (128, torch.float32, tfb.Tf32Pack),
-                                          (256, torch.float32, tfb.Tf32ClusterPack),
+                                          (256, torch.float32, tfb.Tf32D256Pack),
                                           (128, torch.bfloat16, tfb.BlockPack)])
 def test_kernel_weights_follow_the_route(d, dtype, kind):
     """float32 at D 64 and 128 takes the 3xTF32 pack, float32 at D 256 the
-    cluster kernel's pack, bfloat16 the bf16 pack."""
+    D 256 kernel's pack, bfloat16 the bf16 pack."""
     p = random_block(d, swiglu_hidden_dim(d), seed=d)
     assert type(tfb.kernel_weights(p, dtype)) is kind
 

@@ -143,9 +143,9 @@ def test_cpu_bf16_tensor_with_a_pack_takes_plain_version_without_launch():
     p = random_block(64, 172, seed=1)
     pack = tfb.pack_block(p)
     x = torch.randn(3, 9, 64, generator=torch.Generator().manual_seed(0)).to(BF16)
-    before = (tfb.TF32X3_CLUSTER_LAUNCHES, tfb.WGMMA_LAUNCHES)
+    before = (tfb.TF32X3_LAUNCHES, tfb.TF32X3_D256_LAUNCHES, tfb.WGMMA_LAUNCHES)
     out = tfb.fused_encoder_block(x, pack, 4)
-    assert (tfb.TF32X3_CLUSTER_LAUNCHES, tfb.WGMMA_LAUNCHES) == before
+    assert (tfb.TF32X3_LAUNCHES, tfb.TF32X3_D256_LAUNCHES, tfb.WGMMA_LAUNCHES) == before
     torch.testing.assert_close(out, tfb.block_reference(x, p, 4), rtol=0, atol=0)
 
 
