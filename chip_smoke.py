@@ -57,15 +57,33 @@ Phases, each of a fixed size; any failure exits non-zero:
    pred and loss against the Block modules (float32: latent scaled error
    2e-5) or every block as ``block_reference`` (bfloat16: 5e-2); each new
    launch shape checked and timed like phase 3;
+12. fine-tuning (HSIMAE-B, the reference recipe on the phase-4 scene: 10
+   labeled pixels a class, 80 train and 80 val): a. the kernels at the
+   validation pass's launch shapes (a val batch of 80, and a full one of
+   512), both dtypes, checked and timed like phase 3; b. three float32 dual
+   steps (labeled 32 with a padded tail, unlabeled 43, mask ratio 0.8,
+   lambda 10, drop-path 0.2, injected draws on both kept grids) on the card
+   against the same three on the CPU, held like phase 8; c. the chain
+   pretrain -> fine-tune -> full-scene eval through
+   ``hsimae_tpu_torch.cli.finetune`` from phase 9's bf16 ``params_final.pt``,
+   bf16, 200 epochs, ``--eval``: finite losses, no kernel launch in the dual
+   steps, 21 launches of the bf16 kernel per val batch and 126 in
+   ``--eval`` (the others never), the ``--eval`` map against the same
+   weights with every block as ``block_reference`` on >= 99.9% of pixels;
+   d. the same run in float32 for 20 epochs on ``fused_block_tf32x3`` only,
+   the map against the Block modules. The runs' per-epoch logs go to
+   ``chiprun_out/smoke_finetune_*.log``; the numbers are a synthetic
+   scene's, not the paper's;
 7. (last) a ``kernels`` JSON line, with each kernel's launches on each path
    (counts set to 0 just before the path), the card's name and power limit,
    then ``{"ok": true, "device": {...}}``.
 
-Phases run in the order 1-6, 11, 8-10, 7.
+Phases run in the order 1-6, 11, 8-10, 12, 7.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import shutil
@@ -145,6 +163,22 @@ MASKED_TOL = {  # scaled error |x - ref| / max(1, |ref|); loss relative
     "float32": {"latent": 2e-5, "pred": 1e-4, "loss_rel": 1e-5},
     "bfloat16": {"latent": 5e-2, "pred": 5e-2, "loss_rel": 1e-2},
 }
+
+# phase 12: fine-tuning, the reference recipe on the phase-4 scene (16 classes, 10 labeled
+# pixels a class: 80 train, 80 val). The val pass's launch shapes at its batch of 80, and at
+# a full val batch of 512: name -> ([M, S, D], launches per val batch)
+FT_VAL_SHAPES = {
+    f"{name} val {b}": ((b * k, s, D_B), n) for b in (80, 512)
+    for name, k, s, n in (("blocks_1", 4, 9, 9), ("blocks_2", 9, 4, 9), ("fusion", 1, 36, 3))}
+DUAL_BATCH, DUAL_VALID, DUAL_UNLABELED = 32, 27, 43  # labeled 32, the last 5 padding
+DUAL_GRIDS = [(2, 4), (4, 2), (2, 4)]  # the two kept grids of mask ratio 0.8 on T 4 x L 9
+FT_CLASSES = 17  # the phase-4 scene's 16 classes and background
+FINETUNE_ARGV = ["--synthetic", "--synthetic-size", "145", "--synthetic-bands", "200",
+                 "--synthetic-classes", "16", "--synthetic-seed", "0", "--model", "HSIMAE-B",
+                 "--samples-per-class", "10", "--batch-size", "32", "--mask-ratio", "0.8",
+                 "--lamda", "10", "--lr", "1e-3", "--wd", "5e-3", "--drop-path", "0.2",
+                 "--eval", "--device", "cuda"]
+FINETUNE_EPOCHS = {"bfloat16": 200, "float32": 20}
 
 
 def fail(msg: str) -> None:
@@ -374,7 +408,8 @@ def cli_pretrain(smi_line: str, fb, workdir: Path) -> dict:
     on the card. bf16: two epochs (a checkpoint each epoch), then a run
     stopped after epoch 1 and resumed, whose epoch-2 loss must equal the
     uninterrupted run's; then one float32 epoch. Training launches no
-    kernel (the Block modules run under autograd)."""
+    kernel (the Block modules run under autograd). The workdirs stay for
+    phase 12, which fine-tunes ``bf16/params_final.pt``."""
     import torch
     from hsimae_tpu_torch.cli import pretrain as cli
     from hsimae_tpu_torch.train.pretrain import run_pretraining
@@ -430,7 +465,6 @@ def cli_pretrain(smi_line: str, fb, workdir: Path) -> dict:
     print(json.dumps(row32), flush=True)
     if not all(math.isfinite(v) for v in f32["epoch_loss"]):
         fail(f"float32 pretraining loss not finite: {f32['epoch_loss']}")
-    shutil.rmtree(workdir, ignore_errors=True)
     return row
 
 
@@ -496,6 +530,229 @@ def masked_encoder_kernel(smi_line: str, fb, hsimae_model, gen, max_err: dict) -
             row, err = time_case(fb, dtype, dname, name, shape, gen, torch.device("cuda"),
                                  grids=grids, launches_per_call=count)
             max_err[row["kernel"]] = max(max_err[row["kernel"]], err)
+    return launches
+
+
+def keep_to(keep, dev):
+    """Drop-path keep masks (per stack, per block, a pair or None) on ``dev``."""
+    if keep is None:
+        return None
+    return {k: [None if p is None else tuple(t.to(dev) for t in p) for p in v]
+            for k, v in keep.items()}
+
+
+def dual_step_card_vs_cpu(smi_line: str, fb) -> dict:
+    """Phase 12b: three float32 HSIMAE-B dual steps on the card and the same
+    three on the CPU, from one seeded init, one labeled batch with a padded
+    tail, one unlabeled batch and injected draws (flips, both kept grids,
+    drop-path masks of both encodes); each loss and every final parameter
+    must agree, and the card's steps launch no block kernel."""
+    import torch
+    from hsimae_tpu_torch.config import preset
+    from hsimae_tpu_torch.models.hsimae import build_dual_vit
+    from hsimae_tpu_torch.models.masking import GridMask
+    from hsimae_tpu_torch.train.finetune import DualDraws, draw_dual, make_dual_step
+    from hsimae_tpu_torch.train.optim import finetune_optimizer
+
+    cfg = preset("HSIMAE-B", compute_dtype=torch.float32)
+    g = torch.Generator().manual_seed(12)
+    x = torch.rand(DUAL_BATCH, cfg.img_size, cfg.img_size, cfg.bands, generator=g)
+    xu = torch.rand(DUAL_UNLABELED, cfg.img_size, cfg.img_size, cfg.bands, generator=g)
+    y = torch.randint(1, FT_CLASSES, (DUAL_BATCH,), generator=g)
+    w = torch.ones(DUAL_BATCH)
+    y[DUAL_VALID:], w[DUAL_VALID:] = 0, 0.0
+    probe = build_dual_vit(cfg, FT_CLASSES, device="cpu")
+    draws = [draw_dual(probe, DUAL_BATCH, DUAL_UNLABELED, lt, ll, g, "cpu")
+             for lt, ll in DUAL_GRIDS]
+
+    def run(device):
+        model = build_dual_vit(cfg, FT_CLASSES, seed=0, device=device)
+        opt, sched = finetune_optimizer(model, 1e-3, 5e-3, epochs=len(DUAL_GRIDS),
+                                        steps_per_epoch=1)
+        step = make_dual_step(model, opt, sched, lamda=10.0)
+        losses = []
+        reset_counts(fb)
+        for (lt, ll), d in zip(DUAL_GRIDS, draws):
+            d = DualDraws(tuple(f.to(device) for f in d.flips),
+                          tuple(f.to(device) for f in d.flips_u),
+                          GridMask(*(t.to(device) for t in d.grid)),
+                          keep_to(d.drop_keep_cls, device), keep_to(d.drop_keep_rec, device))
+            loss, rec, _ = step(x.to(device), y.to(device), w.to(device), xu.to(device),
+                                lt, ll, draws=d)
+            losses += [loss.item(), rec.item()]
+        if any(launch_counts(fb).values()):
+            fail(f"a dual step launched a block kernel: {launch_counts(fb)}")
+        return losses, {k: v.detach().cpu() for k, v in model.named_parameters()}, sched
+
+    t0 = time.perf_counter()
+    card_losses, card_params, sched = run("cuda")
+    t_card = time.perf_counter() - t0
+    cpu_losses, cpu_params, _ = run("cpu")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses))
+    param_err = max(((card_params[k] - v).abs() / v.abs().clamp(min=1.0)).max().item()
+                    for k, v in cpu_params.items())
+    moved = max((card_params[k] - v).abs().max().item() for k, v in
+                build_dual_vit(cfg, FT_CLASSES, seed=0, device="cpu").named_parameters())
+    ok = loss_rel <= STEP_LOSS_RTOL and param_err <= STEP_PARAM_TOL
+    row = {"phase": "dual_step_card_vs_cpu", "model": "HSIMAE-B", "dtype": "float32",
+           "batch": DUAL_BATCH, "valid": DUAL_VALID, "unlabeled": DUAL_UNLABELED,
+           "grids": DUAL_GRIDS, "lr": [sched(k) for k in range(len(DUAL_GRIDS))],
+           "card_losses_loss_rec": card_losses, "cpu_losses_loss_rec": cpu_losses,
+           "max_loss_rel": loss_rel, "loss_rtol": STEP_LOSS_RTOL,
+           "max_param_scaled_err": param_err, "param_tol": STEP_PARAM_TOL,
+           "max_param_move": moved, "card_s": t_card, "card": smi_line, "ok": ok}
+    print(json.dumps(row), flush=True)
+    if not all(math.isfinite(v) for v in card_losses + cpu_losses) or not ok:
+        fail(f"dual steps on the card disagree with the CPU: {row}")
+    return row
+
+
+def cli_finetune(smi_line: str, fb, hsimae_model, dname: str, pretrained: Path,
+                 log_dir: Path) -> dict:
+    """Phases 12c (bfloat16) and 12d (float32): ``cli.finetune.main`` from
+    the bf16 pretrain's ``params_final.pt`` with ``--eval``. The loop's
+    steps are wrapped to read the launch counts: each dual step launches no
+    block kernel, each validation batch 21 of the dtype's kernel (counts set
+    to 0 before each pass), ``--eval`` 21 a scene batch (counts set to 0
+    before it). Then the ``--eval`` map against the same fine-tuned weights
+    through the Block modules (float32) or with every block as
+    ``block_reference`` (bfloat16), and one validation pass timed again
+    with the kernel weights rebuilt first and without. Returns the launches
+    per kernel on the validation and the ``--eval`` path."""
+    import torch
+    from hsimae_tpu_torch.cli import finetune as cli
+    from hsimae_tpu_torch.config import EvalConfig
+    from hsimae_tpu_torch.train import finetune as ft
+    from hsimae_tpu_torch.train.evaluate import build_classifier, predict_scene
+
+    own = MAIN_KERNEL[dname]
+    want = {k: 21 * (k == own) for k in KERNELS}
+    launches = {"cli.finetune val": dict.fromkeys(KERNELS, 0),
+                "cli.finetune --eval": dict.fromkeys(KERNELS, 0)}
+    seen = {"steps": 0, "val_batches": 0}
+    make_step, make_ev, evaluate_scene = ft.make_dual_step, ft.make_eval_metrics_step, \
+        cli.evaluate_scene
+
+    def counted_step(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def run(*sa, **skw):
+            reset_counts(fb)
+            out = step(*sa, **skw)
+            if any(launch_counts(fb).values()):
+                fail(f"{dname} dual step launched a block kernel: {launch_counts(fb)}")
+            seen["steps"] += 1
+            return out
+        return run
+
+    def counted_ev(model, n_classes):
+        ev = make_ev(model, n_classes)
+
+        def run(x, y, w):
+            reset_counts(fb)
+            out = ev(x, y, w)
+            counts = launch_counts(fb)
+            if counts != want:
+                fail(f"{dname} validation batch launched {counts}, expected 21 of {own} only")
+            for k in KERNELS:
+                launches["cli.finetune val"][k] += counts[k]
+            seen.update(val_batches=seen["val_batches"] + 1, model=model, ev=ev, batch=(x, y, w))
+            return out
+        return run
+
+    def counted_eval(*a, **kw):
+        reset_counts(fb)
+        out = evaluate_scene(*a, **kw)
+        torch.cuda.synchronize()
+        launches["cli.finetune --eval"] = launch_counts(fb)
+        seen["eval_args"] = a
+        return out
+
+    epochs = FINETUNE_EPOCHS[dname]
+    argv = FINETUNE_ARGV + ["--epochs", str(epochs), "--pretrained", str(pretrained)]
+    argv += [] if dname == "bfloat16" else ["--no-bf16"]
+    log_dir.mkdir(parents=True, exist_ok=True)
+    log_path = log_dir / f"smoke_finetune_{dname}.log"
+    ft.make_dual_step, ft.make_eval_metrics_step, cli.evaluate_scene = \
+        counted_step, counted_ev, counted_eval
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with open(log_path, "w") as log, contextlib.redirect_stdout(log):
+            res, ev = cli.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        ft.make_dual_step, ft.make_eval_metrics_step, cli.evaluate_scene = \
+            make_step, make_ev, evaluate_scene
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    hist = res.history
+    size = cli.build_parser().parse_args(argv).synthetic_size
+    n_batches = math.ceil(size * size / EvalConfig().batch_size)
+    if launches["cli.finetune --eval"] != {k: 21 * n_batches * (k == own) for k in KERNELS}:
+        fail(f"{dname} --eval launched {launches['cli.finetune --eval']}, expected "
+             f"{21 * n_batches} of {own} only")
+    curves = [hist[k] for k in ("loss", "loss_rec", "val_loss")]
+    if len(hist["loss"]) != epochs or not all(math.isfinite(v) for c in curves for v in c):
+        fail(f"{dname} fine-tuning losses not finite: {curves}")
+
+    # one validation pass again, with the kernel weights rebuilt first and without
+    model, val_ev, batch = seen["model"], seen["ev"], seen["batch"]
+
+    def val_pass_ms(repack: bool) -> float:
+        if repack:
+            with torch.no_grad():
+                for p in model.parameters():
+                    p.add_(0.0)  # a new version: the next pass rebuilds the kernel weights
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cm, ce, cnt = val_ev(*batch)
+        torch.cat([cm.flatten(), ce[None], cnt[None]]).cpu()
+        return (time.perf_counter() - t) * 1e3
+
+    val_ms = {k: sorted(val_pass_ms(k) for _ in range(5))[2] for k in (True, False)}
+
+    # the --eval map against the same weights through the reference blocks
+    scene, test_gt, params, mcfg, num_classes = seen["eval_args"][:5]
+    by_reference = dname == "bfloat16"
+    clf = build_classifier(params, mcfg.replace(use_kernel=by_reference), num_classes,
+                           device="cuda")
+    orig = hsimae_model.fused_encoder_block
+    if by_reference:  # every block as block_reference, nothing else changed
+        hsimae_model.fused_encoder_block = lambda h, wt, nh: fb.block_reference(
+            h, wt if isinstance(wt, fb.BlockParams) else wt.params, nh)
+    try:
+        ref_map = predict_scene(clf, scene, EvalConfig())
+    finally:
+        hsimae_model.fused_encoder_block = orig
+    agree = float((ref_map == ev.pred_map).mean())
+    steady = hist["epoch_seconds"][1:] or hist["epoch_seconds"]
+    steps_per_epoch = seen["steps"] // epochs
+    vm, tm = res.val_metrics, ev.metrics
+    row = {"main_path": "cli.finetune", "model": "HSIMAE-B", "dtype": dname, "epochs": epochs,
+           "pretrained": pretrained.name, "dual_steps": seen["steps"],
+           "steps_per_epoch": steps_per_epoch, "val_passes": len(hist["val_seconds"]),
+           "val_batches": seen["val_batches"], "kernel": own,
+           "val_launches": launches["cli.finetune val"][own],
+           "eval_launches": launches["cli.finetune --eval"][own], "wall_s": wall,
+           "dual_steps_per_s": steps_per_epoch * len(steady) / sum(steady),
+           "epoch_s_median": sorted(hist["epoch_seconds"])[epochs // 2],
+           "val_pass_ms_in_loop_median": 1e3 * sorted(hist["val_seconds"])[
+               len(hist["val_seconds"]) // 2],
+           "val_pass_ms_with_repack": val_ms[True], "val_pass_ms_without_repack": val_ms[False],
+           "max_memory_allocated_bytes": peak,
+           "val": {"oa": vm.oa, "aa": vm.aa, "kappa": vm.kappa},
+           "test": {"oa": tm.oa, "aa": tm.aa, "kappa": tm.kappa},
+           "final_loss": hist["loss"][-1], "final_loss_rec": hist["loss_rec"][-1],
+           "reference": "block_reference" if by_reference else "block_modules",
+           "agreement": agree, "log": str(log_path.relative_to(log_dir.parent)),
+           "note": "synthetic scene, not the paper's numbers", "card": smi_line}
+    print(json.dumps(row), flush=True)
+    if agree < MIN_AGREEMENT:
+        fail(f"{dname} fine-tuned --eval map agrees with {row['reference']} on {agree:.5f} "
+             f"of pixels (< {MIN_AGREEMENT})")
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -675,13 +932,31 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 9. pretraining through the CLI: bf16 (resumed too), then f32 ----
-    cli_pretrain(smi_line, fb, Path(__file__).resolve().parent / "_smoke_runs")
+    root = Path(__file__).resolve().parent
+    runs = root / "_smoke_runs"
+    cli_pretrain(smi_line, fb, runs)
     launches["cli.pretrain"] = dict.fromkeys(KERNELS, 0)  # checked there: none
     torch.cuda.empty_cache()
 
     # ---- 10. the kernel on the masked encoder (eval-mode forward_pretrain) ----
     launches["forward_pretrain eval"] = masked_encoder_kernel(smi_line, fb, hsimae_model, gen,
                                                               max_err)
+
+    # ---- 12. fine-tuning: the validation shapes, dual steps, the chain ----
+    for dtype, dname in dnames.items():
+        for name, (shape, count) in FT_VAL_SHAPES.items():
+            row, err = time_case(fb, dtype, dname, name, shape, gen, dev, model="HSIMAE-B",
+                                 path="cli.finetune val", launches_per_val_batch=count)
+            max_err[row["kernel"]] = max(max_err[row["kernel"]], err)
+        torch.cuda.empty_cache()
+    dual_step_card_vs_cpu(smi_line, fb)
+    torch.cuda.empty_cache()
+    ft_launches = [cli_finetune(smi_line, fb, hsimae_model, dname, runs / "bf16" /
+                                "params_final.pt", root / "chiprun_out")
+                   for dname in ("bfloat16", "float32")]
+    for path in ft_launches[0]:
+        launches[path] = {k: sum(run[path][k] for run in ft_launches) for k in KERNELS}
+    shutil.rmtree(runs, ignore_errors=True)
 
     # ---- 7. result ----
     # times: per batch of 21 launches of the model whose evaluate path runs

@@ -1,7 +1,8 @@
 """Resumable training checkpoints and final parameters, with ``torch.save``.
 
 Counterpart of ``save_checkpoint`` / ``latest_checkpoint`` /
-``restore_checkpoint`` / ``save_params`` in ``hsimae_tpu/checkpoints/io.py``.
+``restore_checkpoint`` / ``save_params`` / ``partial_restore`` in
+``hsimae_tpu/checkpoints/io.py``.
 A checkpoint ``ckpt_{step}.pt`` holds the model's state dict, the optimizer's
 state and the step; ``ckpt_{step}.pt.json`` beside it holds the step and any
 metadata. Every file is written to a temporary name, then moved into place
@@ -14,7 +15,7 @@ from __future__ import annotations
 import json
 import os
 import re
-from typing import Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -71,3 +72,19 @@ def save_params(path: str, model: torch.nn.Module) -> str:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     _atomic_save(_cpu_state(model), path)
     return path
+
+
+def partial_restore(model: torch.nn.Module, state_dict: Dict[str, torch.Tensor]
+                    ) -> Tuple[List[str], List[str]]:
+    """Key-and-shape-intersection restore: every tensor of ``state_dict``
+    whose key the model has, with the same shape, is copied in (cast to the
+    model's dtype); the rest is ignored, and what the source does not cover
+    keeps its value (a pretrain checkpoint leaves ``cls_head`` at its init).
+    Returns ``(loaded, skipped)``, both source keys."""
+    own = model.state_dict()
+    loaded, skipped = [], []
+    for k, v in state_dict.items():
+        fits = k in own and tuple(v.shape) == tuple(own[k].shape)
+        (loaded if fits else skipped).append(k)
+    model.load_state_dict({k: state_dict[k] for k in loaded}, strict=False)
+    return loaded, skipped

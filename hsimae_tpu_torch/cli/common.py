@@ -1,7 +1,7 @@
 """Shared CLI plumbing: scene loading (``.npy`` cubes or synthetic, one
-labeled scene or a pretraining corpus) and model-preset selection, with the
-flags and defaults of ``hsimae_tpu/cli/common.py``. Named datasets and
-msgpack/``.pkl`` checkpoints are not ported yet.
+labeled scene or a pretraining corpus), model-preset selection and weight
+files, with the flags and defaults of ``hsimae_tpu/cli/common.py``. Named
+datasets and msgpack/``.pkl`` checkpoints are not ported yet.
 """
 
 from __future__ import annotations
@@ -117,3 +117,13 @@ def load_state_dict(path: Optional[str]) -> Optional[dict]:
     if isinstance(sd, dict) and isinstance(sd.get("state_dict"), dict):
         sd = sd["state_dict"]
     return sd
+
+
+def load_pretrained(path: Optional[str]) -> Optional[dict]:
+    """``--pretrained``: a state dict written by the port (``.pt``, e.g. the
+    pretrain CLI's ``params_final.pt``). A JAX ``.msgpack`` or a reference
+    ``.pkl`` is refused: those readers are not ported yet."""
+    if path and path.endswith((".msgpack", ".pkl")):
+        raise SystemExit(f"--pretrained {path}: only a torch state dict (.pt) is read; "
+                         ".msgpack and .pkl checkpoints are not ported yet")
+    return load_state_dict(path)

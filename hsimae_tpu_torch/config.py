@@ -1,7 +1,7 @@
 """Configuration dataclasses and named presets.
 
 Port-owned copy of ``hsimae_tpu/config.py`` (``ModelConfig``, ``PRESETS``,
-``preset``, ``PretrainConfig``, ``EvalConfig``). Differences from the JAX
+``preset``, ``PretrainConfig``, ``FinetuneConfig``, ``EvalConfig``). Differences from the JAX
 package:
 
 * ``compute_dtype`` is a ``torch.dtype``;
@@ -142,6 +142,26 @@ class PretrainConfig:
     seed: int = 42
     log_every: int = 50
     checkpoint_every_steps: int = 0  # 0 = only the final parameters
+
+
+@dataclasses.dataclass(frozen=True)
+class FinetuneConfig:
+    """Dual-branch fine-tuning hyperparameters (the JAX package's defaults)."""
+
+    mask_ratio: float = 0.8
+    lamda: float = 10.0  # loss = lamda * rec + ce
+    lr: float = 1e-3
+    weight_decay: float = 5e-3
+    batch_size: int = 32
+    epochs: int = 200
+    warmup_frac: float = 0.1  # of epochs; the schedule steps once an epoch
+    drop_path: float = 0.2
+    train_ratio: float = 0.5  # labeled pool split into train and val
+    val_batch_size: int = 512
+    seed: int = 3407
+    # learning-rate multiplier of every parameter outside cls_head: 1.0 is
+    # the reference's uniform rate, 0.0 freezes the encoder
+    encoder_lr_scale: float = 1.0
 
 
 @dataclasses.dataclass(frozen=True)

@@ -3,8 +3,9 @@
 Counterpart of ``hsimae_tpu/data/pipeline.py``: scenes live on the device
 once, and each batch of patches is one index gather from them.
 
-* ``ScenePatchSource``: one symmetric-padded scene; per-pixel patches for
-  full-scene classification;
+* ``ScenePatchSource``: one scene, symmetric-padded for per-pixel patches
+  (classification, the labeled pool) and unpadded for window cuts (the
+  unlabeled pool of fine-tuning);
 * ``MultiScenePatchSource``: many scenes of different shapes in one flat
   buffer; pretraining cuts by ``(row, col, scene_id)``, normalised per scene;
 * ``augment_flips``: per-sample horizontal and vertical flips, with
@@ -27,9 +28,14 @@ def _pad_scene(scene: np.ndarray, pad: int) -> np.ndarray:
 
 
 class ScenePatchSource:
-    """One scene resident on ``device``; ``gather_pixels(idx)`` returns the
-    patch centred on each pixel: pixel (r, c) -> the window starting at
-    (r, c) in the scene padded by ``patch_size // 2``."""
+    """One scene resident on ``device``, padded and unpadded.
+
+    * ``gather_pixels(idx)``: the patch centred on each pixel: pixel (r, c)
+      -> the window starting at (r, c) in the scene padded by
+      ``patch_size // 2``;
+    * ``gather_windows(starts)``: windows of the unpadded scene at
+      ``[B, 2]`` (row, col) starts.
+    """
 
     def __init__(self, scene: np.ndarray, patch_size: int = 9,
                  device: str | torch.device = "cuda"):
@@ -40,15 +46,26 @@ class ScenePatchSource:
         self.pw = padded.shape[1]
         self._flat_padded = torch.from_numpy(
             np.ascontiguousarray(padded.reshape(-1, self.c))).to(self.device)
+        self._flat = torch.from_numpy(
+            np.ascontiguousarray(scene, dtype=np.float32).reshape(-1, self.c)).to(self.device)
         d = torch.arange(patch_size, device=self.device)
         self._offsets = (d[:, None] * self.pw + d[None, :]).reshape(-1)  # [ps*ps]
+        self._offsets_unpadded = (d[:, None] * self.w + d[None, :]).reshape(-1)
+
+    def _take(self, flat: torch.Tensor, base: torch.Tensor, offsets: torch.Tensor):
+        ps = self.patch_size
+        idx = (base[:, None] + offsets[None, :]).reshape(-1)
+        return flat.index_select(0, idx).reshape(base.shape[0], ps, ps, self.c)
 
     def gather_pixels(self, pixel_idx) -> torch.Tensor:
         idx = torch.as_tensor(pixel_idx, dtype=torch.int64).to(self.device)
         base = (idx // self.w) * self.pw + idx % self.w  # window start in the padded scene
-        flat = (base[:, None] + self._offsets[None, :]).reshape(-1)
-        ps = self.patch_size
-        return self._flat_padded.index_select(0, flat).reshape(idx.shape[0], ps, ps, self.c)
+        return self._take(self._flat_padded, base, self._offsets)
+
+    def gather_windows(self, starts) -> torch.Tensor:
+        starts = torch.as_tensor(starts, dtype=torch.int64).to(self.device)
+        return self._take(self._flat, starts[:, 0] * self.w + starts[:, 1],
+                          self._offsets_unpadded)
 
 
 def gather_multiscene(flat: torch.Tensor, widths: torch.Tensor, bases: torch.Tensor,

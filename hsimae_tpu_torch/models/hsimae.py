@@ -1,10 +1,11 @@
 """The HSIMAE model family as one ``nn.Module``: the separable
 spatial/spectral encoder, the MAE decoder and the classification head.
 
-Counterpart of ``hsimae_tpu/models/hsimae.py`` for the pretraining model
-(``build_hsimae``: encoder + decoder + pixel loss) and the inference model
-(``build_hsi_vit``: encoder + cls head). The dual fine-tuning forward and
-``build_dual_vit`` are not ported yet.
+Counterpart of ``hsimae_tpu/models/hsimae.py`` for its three models: the
+pretraining model (``build_hsimae``: encoder + decoder + pixel loss), the
+fine-tuning model (``build_dual_vit``: encoder + decoder + cls head, with the
+dual forward ``forward_dual``) and the inference model (``build_hsi_vit``:
+encoder + cls head).
 
 Input layout: ``[N, img, img, bands]`` channels-last; latents ``[N, T*L, C]``.
 Parameter names follow the reference ``state_dict`` (``blocks_1.3.attn.q.weight``),
@@ -216,13 +217,28 @@ class HSIMAE(nn.Module):
         x = self._run_blocks("blocks", x.reshape(n, t * l, dim), keep.get("blocks"))
         return self.norm(x)
 
-    def encode(self, imgs: torch.Tensor) -> torch.Tensor:
-        """Unmasked encoding -> [N, T*L, C]."""
+    def _drop_keep(self, drop_keep: Optional[DropKeep], n: int, len_t: int, len_l: int,
+                   generator: Optional[torch.Generator], device) -> Optional[DropKeep]:
+        """The drop-path keep masks a forward runs with: none out of
+        training, else ``drop_keep``, else (with drop-path) a draw."""
+        if not self.training:
+            return None
+        if drop_keep is None and self.cfg.drop_path > 0.0:
+            return self.draw_drop_keep(n, len_t, len_l, generator, device)
+        return drop_keep
+
+    def encode(self, imgs: torch.Tensor, drop_keep: Optional[DropKeep] = None,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Unmasked encoding -> [N, T*L, C]. In training, ``drop_keep`` (rows
+        ``N*T``, ``N*L`` and ``N``) is drawn from ``generator`` when not
+        given."""
         c = self.cfg
         tokens = self.patch_embed(imgs)  # [N, T, L, C]
         pos = self.pos_embed.reshape(1, c.t_size, c.l_size, c.embed_dim)
         x = tokens + pos.to(tokens.dtype)
-        return self._encode_grid(x, c.t_size, c.l_size)
+        drop_keep = self._drop_keep(drop_keep, imgs.shape[0], c.t_size, c.l_size, generator,
+                                    imgs.device)
+        return self._encode_grid(x, c.t_size, c.l_size, drop_keep)
 
     def draw_drop_keep(self, n: int, len_t: int, len_l: int,
                        generator: Optional[torch.Generator] = None,
@@ -255,10 +271,7 @@ class HSIMAE(nn.Module):
         if grid is None:
             grid = spatial_spectral_mask(n, c.t_size, c.l_size, len_t, len_l, generator,
                                          imgs.device)
-        if not self.training:
-            drop_keep = None
-        elif drop_keep is None and c.drop_path > 0.0:
-            drop_keep = self.draw_drop_keep(n, len_t, len_l, generator, imgs.device)
+        drop_keep = self._drop_keep(drop_keep, n, len_t, len_l, generator, imgs.device)
         x = tokens + self.pos_embed.reshape(1, c.t_size, c.l_size, c.embed_dim).to(tokens.dtype)
         dim = x.shape[-1]
         x = torch.gather(x, 1, grid.ids_t[:, :, None, None].expand(-1, -1, c.l_size, dim))
@@ -282,11 +295,13 @@ class HSIMAE(nn.Module):
 
     # ------------------------------- heads --------------------------------
 
-    def classify(self, imgs: torch.Tensor) -> torch.Tensor:
+    def classify(self, imgs: torch.Tensor, drop_keep: Optional[DropKeep] = None,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """'agg': group the latent by spatial position, concat spectral
-        groups, mean over positions; 'gap': plain mean over all tokens."""
+        groups, mean over positions; 'gap': plain mean over all tokens.
+        ``drop_keep`` / ``generator`` as :meth:`encode` takes them."""
         c = self.cfg
-        latent = self.encode(imgs)
+        latent = self.encode(imgs, drop_keep, generator)
         n = latent.shape[0]
         if c.head_mode == "gap":
             x = latent.reshape(n, c.num_patches, c.embed_dim).mean(dim=1)
@@ -309,6 +324,33 @@ class HSIMAE(nn.Module):
         target = patchify(imgs, c.patch_size, c.b_patch_size)
         loss, mean, std = mae_loss(pred, target, grid.mask, c.norm_pix_loss, sample_weight)
         return loss, pred, grid.mask, (mean, std)
+
+    def forward_dual(self, imgs: torch.Tensor, imgs_u: torch.Tensor, len_t: int, len_l: int,
+                     sample_weight: Optional[torch.Tensor] = None,
+                     grid: Optional[GridMask] = None,
+                     drop_keep_cls: Optional[DropKeep] = None,
+                     drop_keep_rec: Optional[DropKeep] = None,
+                     generator: Optional[torch.Generator] = None):
+        """(loss_rec, logits) of dual-branch fine-tuning: the unmasked
+        classification of the labeled batch ``imgs [n, ...]``, then the MAE
+        loss over labeled and unlabeled, ``cat(imgs, imgs_u)`` of ``n + n_u``
+        samples. ``sample_weight [n]`` weighs the labeled rows in the MAE
+        loss (0 for padding), the unlabeled rows weigh 1. ``grid`` (over
+        ``n + n_u``) and, in training, the drop-path masks of the two encodes
+        (``drop_keep_cls`` for the classification, ``drop_keep_rec`` for the
+        masked encode) are drawn from ``generator`` when not given, in call
+        order: the classification's masks, the grid, the masked encode's."""
+        c = self.cfg
+        logits = self.classify(imgs, drop_keep_cls, generator)
+        imgs_all = torch.cat([imgs, imgs_u], dim=0)
+        latent, grid = self.encode_masked(imgs_all, len_t, len_l, grid, drop_keep_rec, generator)
+        pred = self.decode(latent, grid.ids_keep)
+        target = patchify(imgs_all, c.patch_size, c.b_patch_size)
+        w = None
+        if sample_weight is not None:
+            w = torch.cat([sample_weight, sample_weight.new_ones(imgs_u.shape[0])])
+        loss_rec = mae_loss(pred, target, grid.mask, c.norm_pix_loss, w)[0]
+        return loss_rec, logits
 
     def forward(self, imgs: torch.Tensor) -> torch.Tensor:
         return self.classify(imgs)
@@ -342,6 +384,14 @@ def build_hsimae(cfg: ModelConfig, seed: int = 0, device: str | torch.device = "
                  state_dict: Optional[dict] = None) -> HSIMAE:
     """Pretraining model (encoder + decoder, no head), in training mode."""
     return _build(cfg.replace(num_classes=0), True, seed, device, state_dict)
+
+
+def build_dual_vit(cfg: ModelConfig, num_classes: int, drop_path: float = 0.2, seed: int = 0,
+                   device: str | torch.device = "cuda",
+                   state_dict: Optional[dict] = None) -> HSIMAE:
+    """Fine-tuning model (encoder + decoder + cls head), in training mode."""
+    return _build(cfg.replace(num_classes=num_classes, drop_path=drop_path), True, seed,
+                  device, state_dict)
 
 
 def build_hsi_vit(cfg: ModelConfig, num_classes: int, seed: int = 0,

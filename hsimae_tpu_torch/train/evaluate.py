@@ -4,7 +4,8 @@ Counterpart of ``classify_scene`` / ``evaluate_scene`` in
 ``hsimae_tpu/train/evaluate.py``:
 
 * an inference model (encoder + AGG head, no decoder) takes the given
-  weights by key and shape intersection and must cover ``cls_head``;
+  weights by key and shape intersection (``partial_restore``) and must
+  cover ``cls_head``;
 * every pixel gets a patch centred on it (symmetric padding), gathered on
   the device in large batches;
 * background is excluded at argmax over ``logits[:, 1:]``, then +1, on the
@@ -23,6 +24,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from hsimae_tpu_torch.checkpoints.io import partial_restore
 from hsimae_tpu_torch.config import EvalConfig, ModelConfig
 from hsimae_tpu_torch.data.pipeline import ScenePatchSource, batch_indices
 from hsimae_tpu_torch.models.hsimae import CLS_HEAD_NAME, HSIMAE, build_hsi_vit
@@ -36,23 +38,20 @@ class SceneEvalResult:
 
 
 def _load_weights(model: torch.nn.Module, state_dict: Dict[str, torch.Tensor]) -> None:
-    """Key-and-shape-intersection restore (``partial_restore`` of the JAX
-    package): a source tensor is kept only where the model has its key with
-    the same shape, so keys the model lacks (a decoder) and tensors of
-    another shape (a head with another class count) are ignored. A
-    ``cls_head`` left uncovered raises; other uncovered keys warn."""
-    own = model.state_dict()
-    usable = {k: v for k, v in state_dict.items()
-              if k in own and tuple(v.shape) == tuple(own[k].shape)}
-    missing = [k for k in own if k not in usable]
+    """:func:`partial_restore`, so keys the model lacks (a decoder) and
+    tensors of another shape (a head with another class count) are ignored,
+    but a ``cls_head`` left uncovered raises; other uncovered keys warn."""
+    loaded, skipped = partial_restore(model, state_dict)
+    covered = set(loaded)
+    missing = [k for k in model.state_dict() if k not in covered]
     if any(k.split(".")[0] == CLS_HEAD_NAME for k in missing):
         raise ValueError(
             f"weights do not cover {CLS_HEAD_NAME}: wrong num_classes or a "
-            f"pretrain-only checkpoint? (matched {len(usable)} of {len(own)} keys)")
+            f"pretrain-only checkpoint? (matched {len(loaded)} of "
+            f"{len(loaded) + len(missing)} keys)")
     if missing:
         warnings.warn(f"{len(missing)} parameters stay at their seeded init "
-                      f"(ignored {len(state_dict) - len(usable)} source keys)", stacklevel=3)
-    model.load_state_dict(usable, strict=False)
+                      f"(ignored {len(skipped)} source keys)", stacklevel=3)
 
 
 def build_classifier(

@@ -1,14 +1,14 @@
 """Optimizer and learning-rate schedule of MAE pretraining.
 
 Counterpart of ``hsimae_tpu/train/optim.py`` (``timm_cosine_schedule``,
-``wd_mask``, ``adamw``, ``pretrain_optimizer``); ``finetune_optimizer`` is
-not ported yet.
+``wd_mask``, ``adamw``, ``pretrain_optimizer``, ``finetune_optimizer``).
 
 * The schedule is timm's ``CosineLRScheduler`` (one cycle): linear warmup
   from ``warmup_lr_init`` for ``t < warmup_t``, else
   ``lr_min + (lr - lr_min) * (1 + cos(pi * t / t_initial)) / 2`` on the
   global ``t``. Pretraining shifts it by one step (timm is stepped after
   the update and starts at ``warmup_lr_init``): ``sched(t) = cosine(max(t-1, 0))``.
+  Fine-tuning runs it over epochs, shifted by one epoch.
 * Weight decay skips every parameter whose dotted name contains ``bias`` or
   ``norm`` (the reference's rule by name).
 * :class:`AdamW` has optax's ``adamw`` arithmetic: decoupled decay
@@ -47,25 +47,32 @@ def wd_mask(name: str) -> bool:
 
 
 class AdamW:
-    """AdamW over named parameters, in two groups: ``param_groups[0]`` takes
-    weight decay, ``param_groups[1]`` does not (:func:`wd_mask`). Each group
-    holds ``params``, ``names``, ``lr`` (set it before each :meth:`step`)
-    and ``weight_decay``. The second moment is float32; the first is stored
-    in ``mu_dtype`` and updated in float32."""
+    """AdamW over named parameters, grouped by rate and decay: with one
+    rate, ``param_groups[0]`` takes weight decay and ``param_groups[1]``
+    does not (:func:`wd_mask`); ``lr_scale(name)`` gives each parameter a
+    multiple of the rate, and each multiple gets such a pair. Each group
+    holds ``params``, ``names``, ``lr`` (:func:`set_lr` sets it to the rate
+    times the group's ``lr_scale`` before each :meth:`step`) and
+    ``weight_decay``. The second moment is float32; the first is stored in
+    ``mu_dtype`` and updated in float32."""
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]],
                  weight_decay: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                 mu_dtype: Optional[torch.dtype] = None):
-        decay, plain = ([], []), ([], [])
+                 mu_dtype: Optional[torch.dtype] = None,
+                 lr_scale: Optional[Callable[[str], float]] = None):
+        groups: Dict[Tuple[float, bool], Dict] = {}
         for name, p in named_params:
-            if p.requires_grad:
-                group = decay if wd_mask(name) else plain
-                group[0].append(name)
-                group[1].append(p)
-        self.param_groups = [
-            {"names": decay[0], "params": decay[1], "lr": 0.0, "weight_decay": weight_decay},
-            {"names": plain[0], "params": plain[1], "lr": 0.0, "weight_decay": 0.0},
-        ]
+            if not p.requires_grad:
+                continue
+            scale = 1.0 if lr_scale is None else float(lr_scale(name))
+            for decay in (True, False):  # a pair for each rate, decay first
+                groups.setdefault((scale, decay), {
+                    "names": [], "params": [], "lr": 0.0, "lr_scale": scale,
+                    "weight_decay": weight_decay if decay else 0.0})
+            g = groups[scale, wd_mask(name)]
+            g["names"].append(name)
+            g["params"].append(p)
+        self.param_groups = list(groups.values())
         self.b1, self.b2, self.eps = b1, b2, eps
         self.mu_dtype = mu_dtype or torch.float32
         self.count = 0  # updates applied
@@ -150,7 +157,36 @@ def pretrain_optimizer(model: torch.nn.Module, lr: float, weight_decay: float,
     return opt, sched
 
 
+def finetune_optimizer(model: torch.nn.Module, lr: float, weight_decay: float, epochs: int,
+                       steps_per_epoch: int, warmup_frac: float = 0.1,
+                       encoder_lr_scale: float = 1.0) -> Tuple[AdamW, Callable]:
+    """(optimizer, sched) of dual-branch fine-tuning: a cosine over EPOCHS
+    with ``ceil(warmup_frac * epochs)`` warmup epochs, initial and floor
+    rate ``lr * 0.01``, shifted by one epoch (the reference steps its
+    scheduler after each epoch): update ``t`` runs at
+    ``cosine(max(t // steps_per_epoch - 1, 0))``. Betas (0.9, 0.999).
+
+    ``encoder_lr_scale`` multiplies the rate of every parameter outside
+    ``cls_head`` (and so its decay, which the rate multiplies): with any
+    value but 1 the optimizer has a head rate and an encoder rate; 0 freezes
+    the encoder while the head trains."""
+    inner = timm_cosine_schedule(lr, t_initial=epochs,
+                                 warmup_t=int(math.ceil(warmup_frac * epochs)),
+                                 lr_min=lr * 0.01, warmup_lr_init=lr * 0.01)
+
+    def sched(t) -> float:
+        return inner(max(int(t) // max(steps_per_epoch, 1) - 1, 0))
+
+    def scale(name: str) -> float:
+        return 1.0 if name.split(".")[0] == "cls_head" else encoder_lr_scale
+
+    opt = AdamW(model.named_parameters(), weight_decay, b1=0.9, b2=0.999,
+                lr_scale=None if encoder_lr_scale == 1.0 else scale)
+    return opt, sched
+
+
 def set_lr(optimizer: AdamW, lr: float) -> None:
-    """Set every group's learning rate (before each step)."""
+    """Set every group's learning rate to ``lr`` times its ``lr_scale``
+    (before each step)."""
     for g in optimizer.param_groups:
-        g["lr"] = lr
+        g["lr"] = lr * g["lr_scale"]

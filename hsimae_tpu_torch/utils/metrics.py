@@ -1,8 +1,8 @@
 """Classification metrics: overall accuracy, average accuracy, Cohen's kappa,
 and per-class accuracy, computed from a confusion matrix.
 
-Port-owned numpy copy of ``confusion_matrix``, ``Metrics`` and
-``classification_metrics`` from ``hsimae_tpu/utils/metrics.py``; numerically
+Port-owned numpy copy of ``confusion_matrix``, ``Metrics``,
+``metrics_from_raw_confusion`` and ``classification_metrics`` from ``hsimae_tpu/utils/metrics.py``; numerically
 equivalent to sklearn's ``accuracy_score``, mean ``recall_score`` and
 ``cohen_kappa_score``.
 """
@@ -61,6 +61,23 @@ def metrics_from_confusion(cm: np.ndarray) -> Metrics:
     kappa = (oa - pe) / (1.0 - pe) if pe < 1.0 else 0.0
     return Metrics(oa=float(oa), aa=float(aa), kappa=float(kappa),
                    per_class=per_class)
+
+
+def metrics_from_raw_confusion(cm: np.ndarray) -> Metrics:
+    """Metrics from a confusion matrix over RAW labels (row and column 0 are
+    background), as :func:`classification_metrics` scores the same pairs:
+    true-background rows are left out and a background PREDICTION goes to an
+    always-wrong bucket column. ``per_class`` has length ``C - 1``. The
+    fine-tuning loops accumulate the matrix on the device
+    (:func:`hsimae_tpu_torch.ops.metrics_ops.confusion_matrix_op`) and fetch it
+    once a pass."""
+    cm = np.asarray(cm, dtype=np.float64)
+    c = cm.shape[0]
+    s = np.zeros((c, c))
+    s[: c - 1, : c - 1] = cm[1:, 1:]
+    s[: c - 1, c - 1] = cm[1:, 0]  # predicted-background bucket
+    m = metrics_from_confusion(s)
+    return Metrics(oa=m.oa, aa=m.aa, kappa=m.kappa, per_class=m.per_class[: c - 1])
 
 
 def classification_metrics(y_true, y_pred, ignore_zero: bool = True) -> Metrics:

@@ -1,7 +1,7 @@
-"""Port parity: config, sincos tables, SwiGLU widths and the numpy copies
-(GWPCA, synthetic scenes, metrics) of ``hsimae_tpu_torch`` against
-``hsimae_tpu``. Everything here is exact: the port's copies run the same
-numpy code on the same inputs."""
+"""Port parity: config (the presets, ``FinetuneConfig``), sincos tables,
+SwiGLU widths and the numpy copies (GWPCA, synthetic scenes, metrics) of
+``hsimae_tpu_torch`` against ``hsimae_tpu``. Everything here is exact: the
+port's copies run the same numpy code on the same inputs."""
 
 import dataclasses
 
@@ -51,6 +51,14 @@ def test_derived_geometry_and_fusion_depth(s_depth):
     for p in DERIVED + ("num_heads", "decoder_num_heads"):
         assert getattr(t, p) == getattr(j, p), p
     assert t.fusion_depth == (0 if s_depth >= 12 else 12 - s_depth)
+
+
+def test_finetune_config_field_for_field():
+    j, t = jcfg.FinetuneConfig(), tcfg.FinetuneConfig()
+    jf = {f.name for f in dataclasses.fields(j)}
+    assert {f.name for f in dataclasses.fields(t)} == jf
+    for f in jf:
+        assert getattr(t, f) == getattr(j, f), f
 
 
 def test_eval_config_default():
