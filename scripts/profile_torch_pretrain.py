@@ -40,13 +40,44 @@ def kind_of(name: str) -> str:
     return "other"
 
 
+def trace_summary(prof, n_traced: int, wall_ms: float) -> dict:
+    """Per traced step: device busy ms and share of the wall time, device
+    events, aten ops, device ms by kind and the 15 costliest kernels."""
+    from torch.autograd import DeviceType
+
+    by_kernel, kinds, cpu_ops = {}, {}, 0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            by_kernel[ev.key] = (ev.self_device_time_total / 1e3, ev.count)
+            k = kind_of(ev.key)
+            kinds[k] = kinds.get(k, 0.0) + ev.self_device_time_total / 1e3 / n_traced
+        elif ev.key.startswith("aten::"):
+            cpu_ops += ev.count
+    busy_ms = sum(v for v, _ in by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:15]
+    return {"steps": n_traced, "wall_ms_per_step": wall_ms / n_traced,
+            "device_busy_ms_per_step": busy_ms / n_traced,
+            "device_busy_share": busy_ms / wall_ms,
+            "device_events_per_step": sum(c for _, c in by_kernel.values()) / n_traced,
+            "aten_ops_per_step": cpu_ops / n_traced,
+            "device_ms_per_step_by_kind": dict(sorted(kinds.items(), key=lambda kv: -kv[1])),
+            "top_device_ms_per_step": [{"name": k[:90], "ms": v / n_traced, "count": c / n_traced}
+                                       for k, (v, c) in top]}
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("profile_torch_pretrain: needs a CUDA card", file=sys.stderr)
         return 1
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from hsimae_tpu_torch.config import preset
@@ -121,32 +152,13 @@ def main() -> int:
             step(imgs, len_t, len_l)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    by_kernel, kinds, cpu_ops = {}, {}, 0
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA:
-            by_kernel[ev.key] = (ev.self_device_time_total / 1e3, ev.count)
-            k = kind_of(ev.key)
-            kinds[k] = kinds.get(k, 0.0) + ev.self_device_time_total / 1e3 / n_traced
-        elif ev.key.startswith("aten::"):
-            cpu_ops += ev.count
-    busy_ms = sum(v for v, _ in by_kernel.values())
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:15]
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
     print(json.dumps({
-        "device": smi, "model": "HSIMAE-B", "dtype": "bfloat16" if args.bf16 else "float32",
+        "device": card_line(), "model": "HSIMAE-B",
+        "dtype": "bfloat16" if args.bf16 else "float32",
         "batch": bs, "grid": [len_t, len_l], "ms": ms, "enqueue_ms_per_step": enqueue_ms,
         "patches_per_sec_step": bs / ms["step"] * 1e3,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-        "trace": {"steps": n_traced, "wall_ms_per_step": wall_ms / n_traced,
-                  "device_busy_ms_per_step": busy_ms / n_traced,
-                  "device_busy_share": busy_ms / wall_ms,
-                  "device_events_per_step": sum(c for _, c in by_kernel.values()) / n_traced,
-                  "aten_ops_per_step": cpu_ops / n_traced,
-                  "device_ms_per_step_by_kind": dict(sorted(kinds.items(), key=lambda kv: -kv[1])),
-                  "top_device_ms_per_step": [{"name": k[:90], "ms": v / n_traced,
-                                              "count": c / n_traced} for k, (v, c) in top]},
+        "trace": trace_summary(prof, n_traced, wall_ms),
     }))
     return 0
 
