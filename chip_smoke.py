@@ -74,11 +74,30 @@ Phases, each of a fixed size; any failure exits non-zero:
    the map against the Block modules. The runs' per-epoch logs go to
    ``chiprun_out/smoke_finetune_*.log``; the numbers are a synthetic
    scene's, not the paper's;
+13. the paper's protocol (HSIMAE-B, bf16, the phase-4 scene, from phase 9's
+   bf16 ``params_final.pt``): a. ``hsimae_tpu_torch.cli.finetune
+   --protocol`` with the lr grid cut to (1e-3, 1e-4), 1 selection seed and
+   2 test seeds, 20 epochs a run (cut from 4 lrs x 3 seeds + 5 seeds and
+   200 epochs to fit the time limit): 4 fine-tunes, 21 launches of the
+   bf16 kernel a val batch and 126 a test run's scene evaluation, 1,932 in
+   all and none of the others; 4 records with the JAX package's keys in
+   ``protocol_runs.jsonl``, ``best_lr`` in the grid, finite OA/AA/kappa in
+   [0, 100]; ``memory_allocated`` may not grow by more than 64 MB across
+   the protocol; b. the workdir copied, its record file cut to 3 records
+   and a torn line, and the same command again: exactly one fine-tune (546
+   launches), the 3 records kept byte for byte, the same ``best_lr``, the
+   re-run seed's metrics within 1 point of 13a's; c. the last test run's
+   weights through ``cli.evaluate --samples-per-class 10 --seed <its seed>
+   --out``: the scored pixels are the labeled ones less the 160 drawn for
+   training (the protocol's own test split), both PNGs decode to the
+   palette's colours of the map, and the map agrees with
+   ``block_reference``'s on >= 99.9% of pixels. Logs and PNGs go to
+   ``chiprun_out/smoke_protocol*``;
 7. (last) a ``kernels`` JSON line, with each kernel's launches on each path
    (counts set to 0 just before the path), the card's name and power limit,
    then ``{"ok": true, "device": {...}}``.
 
-Phases run in the order 1-6, 11, 8-10, 12, 7.
+Phases run in the order 1-6, 11, 8-10, 12, 13, 7.
 """
 
 from __future__ import annotations
@@ -87,9 +106,11 @@ import contextlib
 import json
 import math
 import shutil
+import struct
 import subprocess
 import sys
 import time
+import zlib
 from pathlib import Path
 
 # Published dense peaks of an H100 SXM (NVIDIA data sheet) at its 700 W limit.
@@ -179,6 +200,20 @@ FINETUNE_ARGV = ["--synthetic", "--synthetic-size", "145", "--synthetic-bands", 
                  "--lamda", "10", "--lr", "1e-3", "--wd", "5e-3", "--drop-path", "0.2",
                  "--eval", "--device", "cuda"]
 FINETUNE_EPOCHS = {"bfloat16": 200, "float32": 20}
+
+# phase 13: the protocol on the phase-4 scene, cut to fit the time limit: 2 lrs x 1
+# selection seed + 2 test seeds at 20 epochs (the paper's: 4 lrs x 3 seeds + 5 seeds, 200)
+PROTOCOL_LRS, PROTOCOL_EPOCHS = (1e-3, 1e-4), 20
+PROTOCOL_ARGV = [a for a in FINETUNE_ARGV if a != "--eval"] + [
+    "--protocol", "--lr-grid", *map(str, PROTOCOL_LRS), "--selection-seeds", "1",
+    "--test-seeds", "2", "--epochs", str(PROTOCOL_EPOCHS)]
+PROTOCOL_RUNS = 4  # 2 selection runs, 2 test runs
+PROTOCOL_LAUNCHES = 4 * 20 * 21 + 2 * 126  # val batches, then the test runs' scene batches
+RESUME_LAUNCHES = 20 * 21 + 126  # the one test run left
+PROTOCOL_RECORD_KEYS = {"select": {"stage", "lr", "seed", "spc", "val_mean3"},
+                        "test": {"stage", "lr", "seed", "spc", "oa", "aa", "kappa", "per_class"}}
+MAX_MEMORY_GROWTH = 64 << 20  # bytes left allocated on the card after the protocol
+FULL_PROTOCOL = {"runs": 4 * 3 + 5, "test_runs": 5, "epochs": 200}  # the paper's recipe
 
 
 def fail(msg: str) -> None:
@@ -756,6 +791,266 @@ def cli_finetune(smi_line: str, fb, hsimae_model, dname: str, pretrained: Path,
     return launches
 
 
+def read_png_rgb(path: Path):
+    """An 8-bit RGB PNG whose rows all use filter 0 (what ``save_colormap``
+    writes), decoded with zlib, every chunk's CRC checked -> [h, w, 3] uint8."""
+    import numpy as np
+
+    data = path.read_bytes()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        fail(f"{path} is not a PNG")
+    pos, idat, size = 8, b"", None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])[0] != zlib.crc32(kind + body):
+            fail(f"{path}: bad CRC in chunk {kind}")
+        if kind == b"IHDR":
+            w, h, depth, ctype = struct.unpack(">IIBB", body[:10])
+            if (depth, ctype) != (8, 2):
+                fail(f"{path}: bit depth {depth}, colour type {ctype}; expected 8-bit RGB")
+            size = (h, w)
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    h, w = size
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    if rows[:, 0].any():
+        fail(f"{path}: a row filter other than 0")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def cli_protocol(smi_line: str, fb, hsimae_model, pretrained: Path, runs: Path,
+                 out_dir: Path) -> dict:
+    """Phase 13 (module docstring): the protocol through ``cli.finetune``, its
+    resume, and the evaluate CLI on the last test run's weights with the
+    test split and colormaps. Returns the launches per kernel on each path."""
+    import numpy as np
+    import torch
+    from hsimae_tpu_torch.cli import evaluate as cli_evaluate
+    from hsimae_tpu_torch.cli import finetune as cli
+    from hsimae_tpu_torch.config import EvalConfig
+    from hsimae_tpu_torch.train import finetune as ft
+    from hsimae_tpu_torch.train import protocol as proto
+    from hsimae_tpu_torch.train.evaluate import build_classifier, predict_scene
+    from hsimae_tpu_torch.utils.colormap import _PALETTE
+
+    own = MAIN_KERNEL["bfloat16"]
+    epochs = PROTOCOL_EPOCHS
+    argv = PROTOCOL_ARGV + ["--pretrained", str(pretrained)]
+    real = (ft.make_dual_step, ft.make_eval_metrics_step, proto.dual_branch_finetune,
+            proto.evaluate_scene, proto._run_one)
+    make_step, make_ev, finetune_fn, evaluate_fn, run_one = real
+    rec: dict = {}
+
+    def delta(before: dict) -> dict:
+        now = launch_counts(fb)
+        return {k: now[k] - before[k] for k in KERNELS}
+
+    def counted_step(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def run(*sa, **skw):
+            rec["steps"] += 1
+            return step(*sa, **skw)
+        return run
+
+    def counted_ev(model, n_classes):
+        ev = make_ev(model, n_classes)
+
+        def run(x, y, w):
+            before = launch_counts(fb)
+            out = ev(x, y, w)
+            got = delta(before)
+            if got != {k: 21 * (k == own) for k in KERNELS}:
+                fail(f"protocol validation batch launched {got}, expected 21 of {own} only")
+            return out
+        return run
+
+    def counted_eval(scene, test_gt, *a, **kw):
+        before = launch_counts(fb)
+        res = evaluate_fn(scene, test_gt, *a, **kw)
+        torch.cuda.synchronize()
+        n = 21 * math.ceil(scene.shape[0] * scene.shape[1] / EvalConfig().batch_size)
+        if delta(before) != {k: n * (k == own) for k in KERNELS}:
+            fail(f"protocol test evaluation launched {delta(before)}, expected {n} of {own}")
+        rec["maps"].append(res.pred_map)
+        return res
+
+    def recorded_finetune(split, model_cfg, ft_cfg, **kw):
+        res = finetune_fn(split, model_cfg, ft_cfg, **kw)
+        rec["histories"].append({k: res.history[k] for k in ("epoch_seconds", "val_seconds")})
+        rec["last"] = (res.params, split.test_gt, kw["seed"])
+        return res
+
+    def timed_run_one(*a, **kw):
+        t = time.perf_counter()
+        out = run_one(*a, **kw)
+        torch.cuda.synchronize()
+        rec["run_seconds"].append(time.perf_counter() - t)
+        return out
+
+    def run(workdir: Path, log_path: Path):
+        rec.clear()
+        rec.update(steps=0, maps=[], histories=[], run_seconds=[])
+        ft.make_dual_step, ft.make_eval_metrics_step = counted_step, counted_ev
+        proto.dual_branch_finetune, proto.evaluate_scene = recorded_finetune, counted_eval
+        proto._run_one = timed_run_one
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        reset_counts(fb)
+        t0 = time.perf_counter()
+        try:
+            with open(log_path, "w") as log, contextlib.redirect_stdout(log):
+                res = cli.main(argv + ["--workdir", str(workdir)])
+            torch.cuda.synchronize()
+        finally:
+            (ft.make_dual_step, ft.make_eval_metrics_step, proto.dual_branch_finetune,
+             proto.evaluate_scene, proto._run_one) = real
+        wall = time.perf_counter() - t0
+        counts = launch_counts(fb)
+        line = json.loads(log_path.read_text().strip().splitlines()[-1])
+        return (res, counts, wall, mem0, torch.cuda.memory_allocated(),
+                torch.cuda.max_memory_allocated(), line)
+
+    def records(workdir: Path) -> list:
+        return (workdir / "protocol_runs.jsonl").read_text().splitlines()
+
+    def pm(text: str):
+        mean, std = (float(v) for v in text.split("±"))
+        return mean, std
+
+    # ---- 13a. the protocol ----
+    out_dir.mkdir(parents=True, exist_ok=True)
+    workdir = runs / "protocol"
+    shutil.rmtree(workdir, ignore_errors=True)
+    res, counts, wall, mem0, mem1, peak, line = run(workdir, out_dir / "smoke_protocol.log")
+    want = {k: PROTOCOL_LAUNCHES * (k == own) for k in KERNELS}
+    if counts != want:
+        fail(f"the protocol launched {counts}, expected {want}")
+    if len(rec["run_seconds"]) != PROTOCOL_RUNS:
+        fail(f"the protocol ran {len(rec['run_seconds'])} fine-tunes, expected {PROTOCOL_RUNS}")
+    lines = records(workdir)
+    parsed = [json.loads(x) for x in lines]
+    if len(parsed) != PROTOCOL_RUNS or any(set(r) != PROTOCOL_RECORD_KEYS[r["stage"]]
+                                           for r in parsed):
+        fail(f"protocol_runs.jsonl holds {parsed}, expected {PROTOCOL_RUNS} records with the "
+             "JAX package's keys")
+    stats = {k: pm(line[k]) for k in ("oa", "aa", "kappa")}
+    if res.best_lr not in PROTOCOL_LRS or line["best_lr"] != res.best_lr or not all(
+            math.isfinite(v) and 0.0 <= v <= 100.0 for m, sd in stats.values() for v in (m, sd)):
+        fail(f"bad protocol result: {line}")
+    if mem1 - mem0 > MAX_MEMORY_GROWTH:
+        fail(f"card memory grew by {mem1 - mem0} bytes across the protocol (> "
+             f"{MAX_MEMORY_GROWTH}): runs are not freed")
+    hists = rec["histories"]
+    steady = [t for h in hists for t in h["epoch_seconds"][1:]]
+    val_s = sorted(t for h in hists for t in h["val_seconds"])
+    sel_s = rec["run_seconds"][:2]
+    test_extra = sum(rec["run_seconds"][2:]) / 2 - sum(sel_s) / 2  # a test run's scene eval
+    extrapolated = (FULL_PROTOCOL["runs"] * sum(sel_s) / 2 * FULL_PROTOCOL["epochs"] / epochs
+                    + FULL_PROTOCOL["test_runs"] * test_extra)
+    row = {"main_path": "cli.finetune --protocol", "model": "HSIMAE-B", "dtype": "bfloat16",
+           "cut": "lr grid (1e-3, 1e-4), 1 selection seed, 2 test seeds, 20 epochs a run; the "
+                  "paper's is 4 lrs x 3 seeds + 5 test seeds, 200 epochs",
+           "runs": len(rec["run_seconds"]), "epochs": epochs, "run_wall_s": rec["run_seconds"],
+           "wall_s": wall, "dual_steps": rec["steps"],
+           "dual_steps_per_s": rec["steps"] * (epochs - 1) / epochs / sum(steady),
+           "val_pass_ms_median": 1e3 * val_s[len(val_s) // 2], "kernel": own,
+           "launches": counts[own], "max_memory_allocated_bytes": peak,
+           "memory_allocated_before": mem0, "memory_allocated_after": mem1,
+           "best_lr": res.best_lr, "selection_scores": {str(k): v for k, v in
+                                                        res.selection_scores.items()},
+           "result": line, "extrapolated_full_protocol_s": extrapolated,
+           "extrapolation": "17 runs x the mean selection run's wall x 200/20 epochs + 5 x a "
+                            "test run's extra wall (its scene evaluation); not measured",
+           "note": "synthetic scene, not the paper's numbers", "card": smi_line}
+    print(json.dumps(row), flush=True)
+    launches = {"protocol": counts}
+    last_params, last_test_gt, last_seed = rec["last"]
+    last_map = rec["maps"][-1]
+
+    # ---- 13b. resume from a cut record file with a torn line ----
+    resumed = runs / "protocol_resume"
+    shutil.rmtree(resumed, ignore_errors=True)
+    shutil.copytree(workdir, resumed)
+    (resumed / "protocol_runs.jsonl").write_text("\n".join(lines[:3]) + '\n{"stage": "test", "lr": ')
+    res_r, counts_r, wall_r, _, _, _, line_r = run(resumed, out_dir / "smoke_protocol_resume.log")
+    want_r = {k: RESUME_LAUNCHES * (k == own) for k in KERNELS}
+    new_lines = records(resumed)
+    redo, again = json.loads(lines[3]), json.loads(new_lines[-1])
+    diff = {k: 100 * (again[k] - redo[k]) for k in ("oa", "aa", "kappa")}
+    row_r = {"check": "protocol resume", "fine_tunes": len(rec["run_seconds"]),
+             "launches": counts_r[own], "wall_s": wall_r, "kept_records_equal":
+             new_lines[:3] == lines[:3], "best_lr": res_r.best_lr, "rerun_seed": again["seed"],
+             "rerun_minus_first_points": diff, "result": line_r, "card": smi_line}
+    print(json.dumps(row_r), flush=True)
+    if len(rec["run_seconds"]) != 1 or counts_r != want_r:
+        fail(f"the resumed protocol ran {len(rec['run_seconds'])} fine-tunes and launched "
+             f"{counts_r}, expected 1 and {want_r}")
+    if new_lines[:3] != lines[:3] or res_r.best_lr != res.best_lr or again["seed"] != redo["seed"]:
+        fail(f"the resumed protocol changed the kept records or the result: {row_r}")
+    if any(abs(v) > 1.0 for v in diff.values()):
+        fail(f"the re-run seed's metrics moved by more than 1 point: {diff}")
+    launches["protocol resume"] = counts_r
+
+    # ---- 13c. the evaluate CLI on the last test run's weights: test split, colormaps ----
+    params_path = runs / "protocol_last.pt"
+    torch.save(last_params, params_path)
+    png_dir = out_dir / "smoke_protocol_eval"
+    shutil.rmtree(png_dir, ignore_errors=True)
+    argv_e = SCENE_ARGV + ["--synthetic-seed", "0", "--params", str(params_path),
+                           "--samples-per-class", "10", "--seed", str(last_seed),
+                           "--out", str(png_dir)]
+    args = cli_evaluate.build_parser().parse_args(argv_e)
+    reset_counts(fb)
+    with contextlib.redirect_stdout(sys.stderr):
+        ev = cli_evaluate.main(argv_e)
+    torch.cuda.synchronize()
+    counts_e = launch_counts(fb)
+    n_batches = math.ceil(args.synthetic_size ** 2 / args.batch_size)
+    if counts_e != {k: 21 * n_batches * (k == own) for k in KERNELS}:
+        fail(f"cli.evaluate launched {counts_e}, expected {21 * n_batches} of {own} only")
+    launches["cli.evaluate --samples-per-class"] = counts_e
+    scene, scored_gt, mcfg = cli_evaluate.prepare(args)
+    full_gt = cli_evaluate.load_labeled_scene(args)[1]
+    n_classes = int(full_gt.max())
+    pred = ev.pred_map
+    rgb = read_png_rgb(png_dir / "scene_pred.png")
+    rgb_masked = read_png_rgb(png_dir / "scene_pred_masked.png")
+    clf = build_classifier(last_params, mcfg, args.num_classes, device="cuda")
+    orig = hsimae_model.fused_encoder_block
+    hsimae_model.fused_encoder_block = lambda h, wt, nh: fb.block_reference(
+        h, wt if isinstance(wt, fb.BlockParams) else wt.params, nh)
+    try:
+        ref_map = predict_scene(clf, scene, EvalConfig(batch_size=args.batch_size))
+    finally:
+        hsimae_model.fused_encoder_block = orig
+    agree = float((ref_map == pred).mean())
+    m = ev.metrics
+    row_e = {"main_path": "cli.evaluate --samples-per-class", "model": "HSIMAE-B",
+             "dtype": "bfloat16", "seed": last_seed, "scored_pixels": int((scored_gt != 0).sum()),
+             "labeled_pixels": int((full_gt != 0).sum()), "train_draw": 10 * n_classes,
+             "launches": counts_e[own], "test": {"oa": m.oa, "aa": m.aa, "kappa": m.kappa},
+             "test_split_equal_protocol": bool(np.array_equal(scored_gt, last_test_gt)),
+             "map_equal_protocol_share": float((pred == last_map).mean()),
+             "reference": "block_reference", "agreement": agree,
+             "pngs": sorted(p.name for p in png_dir.iterdir()), "card": smi_line}
+    print(json.dumps(row_e), flush=True)
+    if row_e["scored_pixels"] != row_e["labeled_pixels"] - row_e["train_draw"] \
+            or not row_e["test_split_equal_protocol"]:
+        fail(f"cli.evaluate --samples-per-class scored the wrong pixels: {row_e}")
+    if not (np.array_equal(rgb, _PALETTE[pred])
+            and np.array_equal(rgb_masked, _PALETTE[np.where(scored_gt != 0, pred, 0)])):
+        fail("the colormap PNGs do not decode to the palette's colours of the map")
+    if agree < MIN_AGREEMENT:
+        fail(f"cli.evaluate map agrees with block_reference on {agree:.5f} of pixels "
+             f"(< {MIN_AGREEMENT})")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def scene_main_path(smi_line: str, fb, hsimae_model, model: str) -> dict:
     """Phases 4-6 (HSIMAE-B) and 11 (HSIMAE-L): the 145x145 scene through
     ``cli.evaluate.main`` at ``model``'s full width and depth, float32 then
@@ -956,6 +1251,10 @@ def main() -> int:
                    for dname in ("bfloat16", "float32")]
     for path in ft_launches[0]:
         launches[path] = {k: sum(run[path][k] for run in ft_launches) for k in KERNELS}
+
+    # ---- 13. the protocol, its resume, the evaluate CLI's test split and colormaps ----
+    launches.update(cli_protocol(smi_line, fb, hsimae_model, runs / "bf16" / "params_final.pt",
+                                 runs, root / "chiprun_out"))
     shutil.rmtree(runs, ignore_errors=True)
 
     # ---- 7. result ----

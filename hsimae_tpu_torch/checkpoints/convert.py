@@ -1,25 +1,31 @@
-"""JAX parameter trees -> the port's ``state_dict``.
+"""Weight files of every source -> the port's ``state_dict``.
 
-Port-owned copy of the mapping in
+``from_jax_params`` is the port-owned copy of the mapping in
 ``hsimae_tpu/checkpoints/torch_convert.py::export_torch_state_dict``. It takes
 the tree as nested dicts of numpy arrays (``jax.tree_util.tree_map(np.asarray,
-params)`` on the JAX side), so the port never sees a JAX type:
+params)`` on the JAX side, or :func:`msgpack_io.load_params` of a file) or
+bfloat16 tensors, so the port never sees a JAX type:
 
 * ``kernel [in, out]`` -> ``weight [out, in]`` (transpose);
 * LayerNorm ``scale`` -> ``weight``;
 * the patch-embed kernel ``[u*p*p, C]`` -> Conv3d ``weight [C, 1, u, p, p]``;
 * list-module suffixes ``blocks_1_3`` -> ``blocks_1.3``;
 * the frozen sincos table(s) the reference stores as parameters are added.
+
+``load_torch_checkpoint`` reads a reference-style torch file, whose names
+are already the port's; ``load_any_checkpoint`` picks the reader by suffix,
+as ``hsimae_tpu/cli/common.py::load_any_checkpoint`` does.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
+from hsimae_tpu_torch.checkpoints.msgpack_io import load_params
 from hsimae_tpu_torch.config import ModelConfig
 from hsimae_tpu_torch.models.pos_embed import sincos_3d
 
@@ -28,6 +34,8 @@ def _flatten(tree, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ..
     if isinstance(tree, dict):
         for k, v in tree.items():
             yield from _flatten(v, prefix + (str(k),))
+    elif isinstance(tree, torch.Tensor):  # a bfloat16 leaf of msgpack_io
+        yield prefix, tree.float().numpy()
     else:
         yield prefix, np.asarray(tree)
 
@@ -54,3 +62,26 @@ def from_jax_params(params: dict, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
         out["decoder_pos_embed"] = sincos_3d(cfg.decoder_dim, cfg.t_size, cfg.grid_size)[None]
         out["mask_token"] = np.zeros((1, 1, cfg.decoder_dim), np.float32)
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in out.items()}
+
+
+def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """A torch ``state_dict`` file (``.pkl``/``.pth``/``.pt``/``.bin``), read
+    on the CPU with ``weights_only``. A file ``{"state_dict": sd, ...}`` whose
+    other values are not tensors is unwrapped to ``sd``."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd and all(
+            not hasattr(v, "shape") for k, v in sd.items() if k != "state_dict"):
+        sd = sd["state_dict"]
+    return sd
+
+
+def load_any_checkpoint(path: Optional[str], cfg: ModelConfig
+                        ) -> Optional[Dict[str, torch.Tensor]]:
+    """``path`` as a port ``state_dict``: a torch file by its suffix, any
+    other file as the JAX package's msgpack parameters (mapped by
+    :func:`from_jax_params` with ``cfg``). None for no path."""
+    if not path:
+        return None
+    if path.endswith((".pkl", ".pth", ".pt", ".bin")):
+        return load_torch_checkpoint(path)
+    return from_jax_params(load_params(path), cfg)

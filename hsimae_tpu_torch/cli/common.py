@@ -1,13 +1,14 @@
-"""Shared CLI plumbing: scene loading (``.npy`` cubes or synthetic, one
-labeled scene or a pretraining corpus), model-preset selection and weight
-files, with the flags and defaults of ``hsimae_tpu/cli/common.py``. Named
-datasets and msgpack/``.pkl`` checkpoints are not ported yet.
+"""Shared CLI plumbing: scene loading (``.npy`` cubes, a named dataset or
+synthetic, one labeled scene or a pretraining corpus) and model-preset
+selection, with the flags and defaults of ``hsimae_tpu/cli/common.py``.
+Weight files of every kind are read by
+:func:`hsimae_tpu_torch.checkpoints.convert.load_any_checkpoint`.
 """
 
 from __future__ import annotations
 
 import argparse
-from typing import List, Optional, Tuple
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -46,6 +47,10 @@ def add_data_args(p: argparse.ArgumentParser, labeled: bool) -> None:
     p.add_argument("--scene", default=None, help=".npy [h, w, bands] cube")
     if labeled:
         p.add_argument("--gt", default=None, help=".npy [h, w] labels; 0=background")
+    p.add_argument("--dataset", default=None,
+                   help="named dataset (Salinas/PaviaU/Houston2013/LongKou) "
+                        "under --data-root or $HSIMAE_DATA_ROOT")
+    p.add_argument("--data-root", default=None)
     p.add_argument("--synthetic", action="store_true",
                    help="use a generated scene (no dataset needed)")
     p.add_argument("--synthetic-size", type=int, default=64)
@@ -81,8 +86,12 @@ def load_labeled_scene(args) -> Tuple[np.ndarray, np.ndarray]:
             kw["cells_per_class"] = cpc
         return gen(args.synthetic_size, args.synthetic_size, bands=args.synthetic_bands,
                    n_classes=args.synthetic_classes, seed=resolve_synthetic_seed(args), **kw)
+    if getattr(args, "dataset", None):
+        from hsimae_tpu_torch.data.datasets import load_dataset
+
+        return load_dataset(args.dataset, getattr(args, "data_root", None))
     if not args.scene or not getattr(args, "gt", None):
-        raise SystemExit("need --scene and --gt, or --synthetic")
+        raise SystemExit("need --scene and --gt, --dataset, or --synthetic")
     return np.load(args.scene), np.load(args.gt)
 
 
@@ -107,23 +116,3 @@ def load_pretrain_scenes(args) -> List[np.ndarray]:
     if not args.scenes:
         raise SystemExit("need --scenes *.npy, or --synthetic")
     return [np.load(p) for p in args.scenes]
-
-
-def load_state_dict(path: Optional[str]) -> Optional[dict]:
-    """A torch ``state_dict`` file (reference names), loaded on the CPU."""
-    if not path:
-        return None
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    if isinstance(sd, dict) and isinstance(sd.get("state_dict"), dict):
-        sd = sd["state_dict"]
-    return sd
-
-
-def load_pretrained(path: Optional[str]) -> Optional[dict]:
-    """``--pretrained``: a state dict written by the port (``.pt``, e.g. the
-    pretrain CLI's ``params_final.pt``). A JAX ``.msgpack`` or a reference
-    ``.pkl`` is refused: those readers are not ported yet."""
-    if path and path.endswith((".msgpack", ".pkl")):
-        raise SystemExit(f"--pretrained {path}: only a torch state dict (.pt) is read; "
-                         ".msgpack and .pkl checkpoints are not ported yet")
-    return load_state_dict(path)

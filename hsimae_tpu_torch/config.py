@@ -1,8 +1,8 @@
 """Configuration dataclasses and named presets.
 
 Port-owned copy of ``hsimae_tpu/config.py`` (``ModelConfig``, ``PRESETS``,
-``preset``, ``PretrainConfig``, ``FinetuneConfig``, ``EvalConfig``). Differences from the JAX
-package:
+``preset``, ``PretrainConfig``, ``FinetuneConfig``, ``EvalConfig``,
+``ProtocolConfig``). Differences from the JAX package:
 
 * ``compute_dtype`` is a ``torch.dtype``;
 * ``use_pallas`` is renamed ``use_kernel`` and defaults to True: on the
@@ -11,14 +11,13 @@ package:
   the plain PyTorch version only for tensors on the CPU;
 * ``PretrainConfig`` has no ``fused_steps`` (the TPU ``lax.scan`` dispatch
   path) and no ``checkpoint_backend``/``ckpt_max_to_keep`` (orbax is not
-  ported); ``adam_mu_dtype`` stays a string;
-* ``EvalConfig`` has no colormap option (colormaps are not ported yet).
+  ported); ``adam_mu_dtype`` stays a string.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -169,3 +168,15 @@ class EvalConfig:
     """Full-scene inference."""
 
     batch_size: int = 4096  # patches gathered on the device per batch
+    save_colormaps: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class ProtocolConfig:
+    """The multi-seed protocol: an lr grid scored over the first
+    ``selection_seeds`` seeds, then the best lr over the first ``test_seeds``."""
+
+    seeds: Tuple[int, ...] = (3407, 3408, 3409, 3410, 3411)
+    selection_seeds: int = 3
+    test_seeds: int = 5
+    lr_grid: Tuple[float, ...] = (5e-3, 1e-3, 5e-4, 1e-4)

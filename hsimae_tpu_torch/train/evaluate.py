@@ -1,4 +1,4 @@
-"""Full-scene per-pixel classification and its metrics.
+"""Full-scene per-pixel classification, its metrics and colormaps.
 
 Counterpart of ``classify_scene`` / ``evaluate_scene`` in
 ``hsimae_tpu/train/evaluate.py``:
@@ -10,14 +10,17 @@ Counterpart of ``classify_scene`` / ``evaluate_scene`` in
   the device in large batches;
 * background is excluded at argmax over ``logits[:, 1:]``, then +1, on the
   device, so each batch fetches ``[B]`` int32 labels;
-* OA / AA / kappa / per-class are computed on ``test_gt != 0`` pixels.
+* OA / AA / kappa / per-class are computed on ``test_gt != 0`` pixels;
+* with a ``save_dir``, the map is written as ``<name>_pred.png`` and, with
+  background where ``test_gt == 0``, ``<name>_pred_masked.png``.
 
-Data-parallel meshes and colormaps are not ported yet.
+Data-parallel meshes and the serving-artifact evaluators are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import warnings
 from typing import Dict, Optional
 
@@ -28,6 +31,7 @@ from hsimae_tpu_torch.checkpoints.io import partial_restore
 from hsimae_tpu_torch.config import EvalConfig, ModelConfig
 from hsimae_tpu_torch.data.pipeline import ScenePatchSource, batch_indices
 from hsimae_tpu_torch.models.hsimae import CLS_HEAD_NAME, HSIMAE, build_hsi_vit
+from hsimae_tpu_torch.utils.colormap import save_colormap
 from hsimae_tpu_torch.utils.metrics import Metrics, classification_metrics
 
 
@@ -102,6 +106,17 @@ def classify_scene(
     return predict_scene(model, scene, cfg)
 
 
+def _finish_eval(pred_map: np.ndarray, test_gt: np.ndarray, cfg: EvalConfig,
+                 save_dir: Optional[str], name: str) -> SceneEvalResult:
+    m = classification_metrics(test_gt, pred_map)
+    if save_dir and cfg.save_colormaps:
+        os.makedirs(save_dir, exist_ok=True)
+        save_colormap(os.path.join(save_dir, f"{name}_pred.png"), pred_map)
+        masked = np.where(test_gt != 0, pred_map, 0)
+        save_colormap(os.path.join(save_dir, f"{name}_pred_masked.png"), masked)
+    return SceneEvalResult(pred_map=pred_map, metrics=m)
+
+
 def evaluate_scene(
     scene: np.ndarray,
     test_gt: np.ndarray,
@@ -111,6 +126,8 @@ def evaluate_scene(
     cfg: EvalConfig = EvalConfig(),
     device: str | torch.device = "cuda",
     seed: int = 0,
+    save_dir: Optional[str] = None,
+    name: str = "scene",
 ) -> SceneEvalResult:
     pred_map = classify_scene(scene, params, model_cfg, num_classes, cfg, device, seed)
-    return SceneEvalResult(pred_map=pred_map, metrics=classification_metrics(test_gt, pred_map))
+    return _finish_eval(pred_map, test_gt, cfg, save_dir, name)

@@ -1,4 +1,5 @@
-"""Port parity: config (the presets, ``FinetuneConfig``), sincos tables,
+"""Port parity: config (the presets, ``FinetuneConfig``, ``EvalConfig``,
+``ProtocolConfig``), sincos tables,
 SwiGLU widths and the numpy copies (GWPCA, synthetic scenes, metrics) of
 ``hsimae_tpu_torch`` against ``hsimae_tpu``. Everything here is exact: the
 port's copies run the same numpy code on the same inputs."""
@@ -63,6 +64,15 @@ def test_finetune_config_field_for_field():
 
 def test_eval_config_default():
     assert tcfg.EvalConfig().batch_size == jcfg.EvalConfig().batch_size == 4096
+
+
+@pytest.mark.parametrize("name", ["EvalConfig", "ProtocolConfig"])
+def test_config_field_for_field(name):
+    j, t = getattr(jcfg, name)(), getattr(tcfg, name)()
+    jf = {f.name for f in dataclasses.fields(j)}
+    assert {f.name for f in dataclasses.fields(t)} == jf
+    for f in jf:
+        assert getattr(t, f) == getattr(j, f), f
 
 
 @pytest.mark.parametrize("dim,t_size,grid", [(32, 4, 3), (128, 4, 3), (256, 8, 5)])

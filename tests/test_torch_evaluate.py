@@ -182,6 +182,37 @@ def test_cli_evaluate_on_cpu(tmp_path, capsys):
     np.testing.assert_array_equal(res.pred_map, res2.pred_map)
 
 
+def test_cli_evaluate_test_split_and_colormaps_equal_jax(tmp_path, capsys):
+    """Both evaluate CLIs read the same JAX ``save_params`` file, draw the
+    same few-shot split again, score the held-out pixels and write the
+    colormaps: equal JSON lines and equal PNG pixels."""
+    from PIL import Image
+
+    from hsimae_tpu.checkpoints.io import save_params
+    from hsimae_tpu.cli import evaluate as jcli
+    from hsimae_tpu_torch.cli import evaluate as tcli
+
+    jc = jcfg.preset("HSIMAE-S")
+    path = save_params(str(tmp_path / "finetuned.msgpack"),
+                       jh.init_model(jh.build_hsi_vit(jc, 4), seed=6)["params"])
+    argv = ["--model", "HSIMAE-S", "--no-bf16", "--synthetic", "--synthetic-size", "14",
+            "--synthetic-bands", "40", "--synthetic-classes", "3", "--num-classes", "4",
+            "--synthetic-seed", "0", "--params", path, "--samples-per-class", "5",
+            "--seed", "3"]
+    want_res = jcli.main(argv + ["--out", str(tmp_path / "jax")])
+    want = capsys.readouterr().out.strip().splitlines()[-1]
+    got_res = tcli.main(argv + ["--out", str(tmp_path / "port"), "--device", "cpu"])
+    got = capsys.readouterr().out.strip().splitlines()[-1]
+    assert got == want
+    np.testing.assert_array_equal(got_res.pred_map, want_res.pred_map)
+    _, gt = make_synthetic_scene(14, 14, bands=40, n_classes=3, seed=0)
+    # the metrics cover the labeled pixels less the 5-a-class training draw
+    assert (tcli.prepare(tcli.build_parser().parse_args(argv))[1] != 0).sum() == (gt != 0).sum() - 15
+    for name in ("scene_pred.png", "scene_pred_masked.png"):
+        with Image.open(tmp_path / "port" / name) as a, Image.open(tmp_path / "jax" / name) as b:
+            np.testing.assert_array_equal(np.asarray(a.convert("RGB")), np.asarray(b.convert("RGB")))
+
+
 def test_port_imports_no_jax():
     """Every module of hsimae_tpu_torch, and chip_smoke.py, import without
     bringing jax, flax, optax or hsimae_tpu into the process."""

@@ -474,8 +474,8 @@ def test_loop_feeds_the_step_what_jax_feeds_it(case, split, monkeypatch):
 
 
 def test_cli_finetune_on_cpu(tmp_path):
-    """A port pretrain state dict in, fine-tuned weights and the scene's
-    test metrics out; ``--protocol`` and JAX checkpoints are refused."""
+    """A port pretrain state dict in, fine-tuned weights, the scene's test
+    metrics and its colormaps out."""
     from hsimae_tpu_torch.cli import finetune as cli
 
     mcfg = tcfg.preset("HSIMAE-S", compute_dtype=torch.float32)
@@ -486,14 +486,11 @@ def test_cli_finetune_on_cpu(tmp_path):
             "--samples-per-class", "5", "--batch-size", "8", "--device", "cpu",
             "--eval-every", "2", "--seed", "1"]
     res, ev = cli.main(argv + ["--pretrained", pre, "--eval", "--workdir", str(tmp_path / "ft")])
-    assert {"finetuned.pt", "train_log.npy", "train.jsonl"} <= set(os.listdir(tmp_path / "ft"))
+    assert {"finetuned.pt", "train_log.npy", "train.jsonl", "scene_pred.png",
+            "scene_pred_masked.png"} <= set(os.listdir(tmp_path / "ft"))
     assert res.history["val_epoch"] == [1] and len(res.history["loss"]) == 2
     assert np.isfinite(res.history["loss"]).all() and np.isfinite(res.history["val_loss"]).all()
     assert ev.pred_map.shape == (24, 24) and ev.pred_map.min() >= 1
     assert 0.0 <= ev.metrics.oa <= 1.0 and res.params["cls_head.weight"].shape[0] == 5
     sd = torch.load(tmp_path / "ft" / "finetuned.pt", weights_only=True)
     th.build_dual_vit(mcfg, 5, device="cpu", state_dict=sd)  # loads strictly
-    with pytest.raises(SystemExit, match="--protocol is not ported"):
-        cli.main(argv + ["--protocol"])
-    with pytest.raises(SystemExit, match="not ported yet"):
-        cli.main(argv + ["--pretrained", "x.msgpack"])
