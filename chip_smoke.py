@@ -49,8 +49,13 @@ Phases, each of a fixed size; any failure exits non-zero:
    72-144 px at 200 bands cut to 32 by GWPCA: two epochs (finite losses,
    the second below the first; warm patches/s of epoch 2 and peak memory
    printed), then a run stopped after epoch 1 and resumed, whose epoch-2
-   loss must equal the uninterrupted run's within 1e-3 relative, then one
-   float32 epoch; training launches no block kernel;
+   loss must equal the uninterrupted run's within 1e-3 relative; f. the same
+   with the background checkpoint writer (``--ckpt-backend orbax
+   --ckpt-max-keep 2``): a run stopped after epoch 1 and resumed by the CLI
+   (epoch-2 loss within 1e-3, exactly 2 checkpoints left), then a fresh
+   two-epoch run with ``--profile`` (one trace, of epoch 2); the step loop's
+   stall per checkpoint, synchronous against background; then one float32
+   epoch; training launches no block kernel;
 10. the kernel on the masked encoder: eval-mode ``forward_pretrain`` at
    batch 2048 on the kept grids (2, 9) and (3, 6), in both dtypes: 21
    launches a call of the dtype's kernel and none of the others; latent,
@@ -93,11 +98,29 @@ Phases, each of a fixed size; any failure exits non-zero:
    palette's colours of the map, and the map agrees with
    ``block_reference``'s on >= 99.9% of pixels. Logs and PNGs go to
    ``chiprun_out/smoke_protocol*``;
+14. serving (HSIMAE-B, from phase 13's last test run's weights, so the
+   chain pretrain -> fine-tune -> export -> serve runs on the card): a. the
+   kernels at the launch shapes of batch buckets 1, 64 and 1024, both dtypes,
+   checked and timed like phase 3; b. ``hsimae_tpu_torch.cli.export`` in four
+   variants (float32; ``--params-dtype bfloat16`` with bf16 compute; ``--quantize
+   int8``; int8 with bfloat16), buckets 1, 64, 1024, platforms cpu and cuda;
+   the int8 artifact under 0.6x the float32 one's bytes; c. each artifact
+   loaded in a fresh process where ``hsimae_tpu_torch.models`` cannot be
+   imported and asked for n = 1, 63, 64, 65, 1024 and 1500 patches: 21
+   launches of the route's kernel a program call (1500: two calls), none of
+   the others, no kernel pack built in a request, logits within the kernel's
+   tolerance of the live model on the same (dequantized) weights; d.
+   ``cli.evaluate --artifact`` on the phase-4 scene: exactly 504 launches of
+   the route's kernel (6 gathers of 4096, 4 calls of bucket 1024, 21 a call),
+   the map against ``cli.evaluate --params`` on the same weights on >= 99.9%
+   of pixels; the int8 map's agreement with the float32 map is printed (not
+   a gate); e. warm pixels/s through the artifact against ``predict_scene``,
+   one ``predict_logits`` of 1024 in ms, peak memory;
 7. (last) a ``kernels`` JSON line, with each kernel's launches on each path
    (counts set to 0 just before the path), the card's name and power limit,
    then ``{"ok": true, "device": {...}}``.
 
-Phases run in the order 1-6, 11, 8-10, 12, 13, 7.
+Phases run in the order 1-6, 11, 8-10, 12, 13, 14, 7.
 """
 
 from __future__ import annotations
@@ -171,6 +194,7 @@ PRETRAIN_ARGV = ["--synthetic", "--synthetic-scenes", "24", "--synthetic-size", 
                  "--batch-size", str(PRETRAIN_BATCH), "--mask-ratio", "0.5", "--epochs", "2",
                  "--seed", "0", "--device", "cuda"]
 RESUME_RTOL = 1e-3
+BG_KEEP = 2  # phase 9f: checkpoints the background writer keeps
 # phase 10: the kernel at the masked encoder's shapes (mask ratio 0.5 on T 4 x L 9)
 MASKED_GRIDS = [(2, 9), (3, 6)]
 MASKED_SHAPES = {  # name: ([M, S, D], launches per call, grids)
@@ -214,6 +238,77 @@ PROTOCOL_RECORD_KEYS = {"select": {"stage", "lr", "seed", "spc", "val_mean3"},
                         "test": {"stage", "lr", "seed", "spc", "oa", "aa", "kappa", "per_class"}}
 MAX_MEMORY_GROWTH = 64 << 20  # bytes left allocated on the card after the protocol
 FULL_PROTOCOL = {"runs": 4 * 3 + 5, "test_runs": 5, "epochs": 200}  # the paper's recipe
+
+# phase 14: serving. The artifact's launch shapes at bucket b: blocks_1 [4b, 9, D] (x9),
+# blocks_2 [9b, 4, D] (x9), fusion [b, 36, D] (x3)
+SERVE_BUCKETS = (1, 64, 1024)
+SERVE_SHAPES = {f"{name} bucket {b}": ((b * k, s, D_B), n) for b in SERVE_BUCKETS
+                for name, k, s, n in (("blocks_1", 4, 9, 9), ("blocks_2", 9, 4, 9),
+                                      ("fusion", 1, 36, 3))}
+SERVE_NS = (1, 63, 64, 65, 1024, 1500)  # requests: pads into 1, 64, 1024; 1500 takes 2 calls
+# the exports of phase 13's last weights: name -> (cli.export flags, stream dtype)
+SERVE_VARIANTS = {"f32": (["--no-bf16"], "float32"),
+                  "bf16": (["--params-dtype", "bfloat16"], "bfloat16"),
+                  "int8": (["--quantize", "int8", "--no-bf16"], "float32"),
+                  "int8_bf16": (["--quantize", "int8", "--params-dtype", "bfloat16"], "bfloat16")}
+MAX_INT8_SIZE = 0.6  # the int8 artifact's bytes over the f32 one's, as JAX's test holds
+SCENE_LAUNCHES = 6 * 4 * 21  # 6 gathers of 4096, 4 calls of bucket 1024 each, 21 a call
+# the serving child: loads an artifact where hsimae_tpu_torch.models cannot be imported,
+# answers each request size, and prints one JSON line (launches, pack builds, timings)
+SERVE_CHILD = """
+import json, sys, time
+import numpy as np
+
+
+class NoModelSource:
+    def find_spec(self, name, path=None, target=None):
+        if name == "hsimae_tpu_torch.models" or name.startswith("hsimae_tpu_torch.models."):
+            raise ImportError("the model source is not deployed")
+
+
+sys.meta_path.insert(0, NoModelSource())
+import torch
+from hsimae_tpu_torch.ops import fused_block as fb
+from hsimae_tpu_torch.serving import load_classifier
+
+art, xs, out, ns = sys.argv[1], sys.argv[2], sys.argv[3], json.loads(sys.argv[4])
+names = ("TF32X3_LAUNCHES", "TF32X3_D256_LAUNCHES", "WGMMA_LAUNCHES")
+torch.cuda.reset_peak_memory_stats()
+t0 = time.perf_counter()
+clf = load_classifier(art, device="cuda")
+torch.cuda.synchronize()
+load_s = time.perf_counter() - t0
+builds = []
+real = fb.kernel_weights
+fb.kernel_weights = lambda *a: builds.append(1) or real(*a)
+x_host = np.load(xs)
+x = torch.from_numpy(x_host).cuda()
+launches, logits = {}, {}
+for n in ns:
+    for c in names:
+        setattr(fb, c, 0)
+    y = clf.predict_logits(x_host[:n] if n == 63 else x[:n])  # numpy in, numpy out at 63
+    torch.cuda.synchronize()
+    launches[str(n)] = [getattr(fb, c) for c in names]
+    if n == 63:
+        numpy_out = isinstance(y, np.ndarray)
+    logits[str(n)] = y if isinstance(y, np.ndarray) else y.cpu().numpy()
+times = []
+for i in range(23):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    clf.predict_logits(x[:1024])
+    torch.cuda.synchronize()
+    if i >= 3:
+        times.append(time.perf_counter() - t)
+np.savez(out, **logits)
+print(json.dumps({"launches": launches, "pack_builds_in_requests": len(builds),
+                  "models_imported": any(m.startswith("hsimae_tpu_torch.models")
+                                         for m in sys.modules),
+                  "load_s": load_s, "predict_1024_ms": 1e3 * sorted(times)[len(times) // 2],
+                  "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+                  "numpy_out_at_63": numpy_out}))
+"""
 
 
 def fail(msg: str) -> None:
@@ -491,6 +586,40 @@ def cli_pretrain(smi_line: str, fb, workdir: Path) -> dict:
     print(json.dumps(row_r), flush=True)
     if not row_r["ok"]:
         fail(f"resumed run disagrees with the uninterrupted one: {row_r}")
+
+    # 9f. the background writer with retention: a run stopped after epoch 1, resumed by the
+    # CLI; then a fresh two-epoch run with --profile (the trace is of its second epoch)
+    from hsimae_tpu_torch.checkpoints.async_io import checkpoint_steps
+
+    bg = ["--ckpt-backend", "orbax", "--ckpt-max-keep", str(BG_KEEP)]
+    args = cli.build_parser().parse_args(argv + bg + ["--workdir", str(workdir / "bg")])
+    source, index, mcfg, pcfg = cli.prepare(args)
+    _, stopped = run_pretraining(source, index.locs, mcfg, pcfg, workdir=args.workdir,
+                                 resume=False, stop_after_epochs=1, device="cuda")
+    del source
+    resumed_bg, _ = run("bg", bg)
+    kept = checkpoint_steps(str(workdir / "bg"))
+    rel_bg = abs(resumed_bg["epoch_loss"][0] - losses[1]) / abs(losses[1])
+    prof_dir = workdir / "profile"
+    t0 = time.perf_counter()
+    profiled, _ = run("bg_profiled", bg + ["--profile", str(prof_dir)])
+    profiled_s = time.perf_counter() - t0
+    traces = sorted(p.name for p in prof_dir.iterdir())
+    sync_ms = [1e3 * t for t in hist["checkpoint_seconds"] + resumed["checkpoint_seconds"]]
+    bg_ms = [1e3 * t for t in stopped["checkpoint_seconds"] + resumed_bg["checkpoint_seconds"]]
+    row_bg = {"check": "background checkpoints", "dtype": "bfloat16", "max_keep": BG_KEEP,
+              "kept_steps": kept, "uninterrupted_epoch_2": losses[1],
+              "resumed_epoch_2": resumed_bg["epoch_loss"], "rel": rel_bg, "rtol": RESUME_RTOL,
+              "stall_ms_sync": sync_ms, "stall_ms_background": bg_ms,
+              "profile_traces": traces,
+              "profile_trace_bytes": sum(p.stat().st_size for p in prof_dir.iterdir()),
+              "profiled_run_s": profiled_s, "profiled_epoch_loss": profiled["epoch_loss"],
+              "card": smi_line}
+    print(json.dumps(row_bg), flush=True)
+    if kept != [spe, 2 * spe] or len(resumed_bg["epoch_loss"]) != 1 or rel_bg > RESUME_RTOL:
+        fail(f"the background-checkpoint resume is wrong: {row_bg}")
+    if traces != ["epoch_1.trace.json"]:
+        fail(f"--profile wrote {traces}, expected the second epoch's trace only")
 
     f32, peak32 = run("f32", ["--no-bf16", "--epochs", "1"])
     row32 = {"main_path": "cli.pretrain", "model": "HSIMAE-B", "dtype": "float32",
@@ -1145,6 +1274,154 @@ def scene_main_path(smi_line: str, fb, hsimae_model, model: str) -> dict:
     return launches
 
 
+def serving(smi_line: str, fb, params_path: Path, runs: Path, gen, max_err: dict) -> dict:
+    """Phase 14 (module docstring): the kernels at the artifact's launch
+    shapes, then phase 13's last weights exported in four variants, each
+    served in a fresh process without the model source and through
+    ``cli.evaluate --artifact`` on the phase-4 scene. Returns the launches
+    per kernel on each path."""
+    import numpy as np
+    import torch
+    from hsimae_tpu_torch.cli import evaluate as cli_evaluate
+    from hsimae_tpu_torch.cli import export as cli_export
+    from hsimae_tpu_torch.config import EvalConfig, preset
+    from hsimae_tpu_torch.serving import load_classifier
+    from hsimae_tpu_torch.train.evaluate import (
+        build_classifier,
+        classify_scene_artifact,
+        predict_scene,
+    )
+
+    # ---- 14a. the kernels at the buckets' launch shapes ----
+    dev = torch.device("cuda")
+    for dtype, dname in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16")):
+        for name, (shape, count) in SERVE_SHAPES.items():
+            row, err = time_case(fb, dtype, dname, name, shape, gen, dev, model="HSIMAE-B",
+                                 path="serving", launches_per_call=count)
+            max_err[row["kernel"]] = max(max_err[row["kernel"]], err)
+        torch.cuda.empty_cache()
+
+    launches = {"serving predict": dict.fromkeys(KERNELS, 0),
+                "cli.evaluate --artifact": dict.fromkeys(KERNELS, 0)}
+    x = torch.rand(max(SERVE_NS), 9, 9, 32, generator=torch.Generator().manual_seed(14))
+    xs = runs / "serve_x.npy"
+    np.save(xs, x.numpy())
+    scene_args = cli_evaluate.build_parser().parse_args(SCENE_ARGV)
+    scene, gt, _ = cli_evaluate.prepare(scene_args)
+    sizes, maps = {}, {}
+    for variant, (flags, dname) in SERVE_VARIANTS.items():
+        own = MAIN_KERNEL[dname]
+        cfg = preset("HSIMAE-B", compute_dtype=getattr(torch, dname))
+        # ---- 14b. export through the CLI ----
+        art = runs / f"serve_{variant}.pt2"
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            cli_export.main(["--params", str(params_path), "--num-classes", str(FT_CLASSES),
+                             "--output", str(art), "--model", "HSIMAE-B", *flags])
+        export_s = time.perf_counter() - t0
+        sizes[variant] = art.stat().st_size
+
+        # ---- 14c. load and serve in a fresh process without the model source ----
+        out = runs / f"serve_{variant}.npz"
+        child = subprocess.run([sys.executable, "-c", SERVE_CHILD, str(art), str(xs), str(out),
+                                json.dumps(SERVE_NS)], cwd=Path(__file__).resolve().parent,
+                               capture_output=True, text=True, timeout=600)
+        if child.returncode != 0:
+            fail(f"serving {variant} in a fresh process failed:\n{child.stderr[-3000:]}")
+        info = json.loads(child.stdout.strip().splitlines()[-1])
+        got = np.load(out)
+        clf = load_classifier(str(art), device="cuda")
+        weights = clf.weights()  # the (dequantized) weights the artifact serves
+        live = build_classifier(weights, cfg, FT_CLASSES, device="cuda")
+        with torch.inference_mode():
+            want = torch.cat([live.classify(c.cuda()) for c in x.split(1024)]).float().cpu()
+        worst = 0.0
+        for n in SERVE_NS:
+            calls = -(-n // 1024)
+            if info["launches"][str(n)] != [21 * calls * (k == own) for k in KERNELS]:
+                fail(f"serving {variant} at n={n} launched {info['launches'][str(n)]}, expected "
+                     f"{21 * calls} of {own} only")
+            if got[str(n)].shape != (n, FT_CLASSES) or not np.isfinite(got[str(n)]).all():
+                fail(f"serving {variant} at n={n} gave logits of shape {got[str(n)].shape}")
+            ref = want[:n].numpy()
+            worst = max(worst, float((np.abs(got[str(n)] - ref) / np.maximum(1, np.abs(ref)))
+                                     .max()))
+            for k, c in zip(KERNELS, info["launches"][str(n)]):
+                launches["serving predict"][k] += c
+        if worst > TOL[dname] or info["pack_builds_in_requests"] or info["models_imported"] \
+                or not info["numpy_out_at_63"]:
+            fail(f"serving {variant}: scaled logits error {worst} (tol {TOL[dname]}), {info}")
+
+        # ---- 14d. cli.evaluate --artifact on the phase-4 scene, against --params ----
+        reset_counts(fb)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            res = cli_evaluate.main(SCENE_ARGV + ["--artifact", str(art)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        counts = launch_counts(fb)
+        if counts != {k: SCENE_LAUNCHES * (k == own) for k in KERNELS}:
+            fail(f"cli.evaluate --artifact ({variant}) launched {counts}, expected "
+                 f"{SCENE_LAUNCHES} of {own} only")
+        for k in KERNELS:
+            launches["cli.evaluate --artifact"][k] += counts[k]
+        wpath = runs / f"serve_{variant}_weights.pt"
+        torch.save(weights, wpath)
+        with contextlib.redirect_stdout(sys.stderr):
+            res_p = cli_evaluate.main(SCENE_ARGV + ["--params", str(wpath)]
+                                      + (["--no-bf16"] if dname == "float32" else []))
+        agree = float((res.pred_map == res_p.pred_map).mean())
+        maps[variant] = res.pred_map
+
+        # ---- 14e. warm scene through the artifact against predict_scene ----
+        ecfg = EvalConfig(batch_size=BATCH)
+        classify_scene_artifact(scene, clf, ecfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        classify_scene_artifact(scene, clf, ecfg)
+        torch.cuda.synchronize()
+        art_s = time.perf_counter() - t0
+        predict_scene(live, scene, ecfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        predict_scene(live, scene, ecfg)
+        torch.cuda.synchronize()
+        live_s = time.perf_counter() - t0
+        n_pix = scene.shape[0] * scene.shape[1]
+        row = {"main_path": "serving", "variant": variant, "model": "HSIMAE-B", "dtype": dname,
+               "flags": flags, "artifact_bytes": sizes[variant], "export_s": export_s,
+               "kernel": own, "request_launches": info["launches"],
+               "pack_builds_in_requests": info["pack_builds_in_requests"],
+               "max_scaled_logit_err": worst, "tol": TOL[dname], "load_s": info["load_s"],
+               "predict_1024_ms": info["predict_1024_ms"],
+               "serve_max_memory_allocated_bytes": info["max_memory_allocated_bytes"],
+               "scene_launches": counts[own], "scene_cli_wall_s": wall,
+               "scene_cli_max_memory_allocated_bytes": peak,
+               "agreement_with_params_run": agree,
+               "warm_artifact_pixels_per_s": n_pix / art_s,
+               "warm_predict_scene_pixels_per_s": n_pix / live_s, "card": smi_line}
+        print(json.dumps(row), flush=True)
+        if agree < MIN_AGREEMENT:
+            fail(f"cli.evaluate --artifact ({variant}) agrees with --params on {agree:.5f} of "
+                 f"pixels (< {MIN_AGREEMENT})")
+        del clf, live
+        torch.cuda.empty_cache()
+    ratio = sizes["int8"] / sizes["f32"]
+    print(json.dumps({"check": "serving sizes", "bytes": sizes, "int8_over_f32": ratio,
+                      "max_int8_over_f32": MAX_INT8_SIZE,
+                      "int8_map_agreement_with_f32_map": float(
+                          (maps["int8"] == maps["f32"]).mean()),
+                      "int8_bf16_map_agreement_with_bf16_map": float(
+                          (maps["int8_bf16"] == maps["bf16"]).mean()),
+                      "card": smi_line}), flush=True)
+    if ratio >= MAX_INT8_SIZE:
+        fail(f"the int8 artifact is {ratio:.3f} of the f32 one's bytes (>= {MAX_INT8_SIZE})")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1255,6 +1532,9 @@ def main() -> int:
     # ---- 13. the protocol, its resume, the evaluate CLI's test split and colormaps ----
     launches.update(cli_protocol(smi_line, fb, hsimae_model, runs / "bf16" / "params_final.pt",
                                  runs, root / "chiprun_out"))
+
+    # ---- 14. serving: export, a fresh process without the model source, --artifact ----
+    launches.update(serving(smi_line, fb, runs / "protocol_last.pt", runs, gen, max_err))
     shutil.rmtree(runs, ignore_errors=True)
 
     # ---- 7. result ----

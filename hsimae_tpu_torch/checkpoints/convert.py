@@ -66,12 +66,14 @@ def from_jax_params(params: dict, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
 
 def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     """A torch ``state_dict`` file (``.pkl``/``.pth``/``.pt``/``.bin``), read
-    on the CPU with ``weights_only``. A file ``{"state_dict": sd, ...}`` whose
+    on the CPU with ``weights_only``. A file ``{"state_dict": sd, ...}`` or
+    ``{"model": sd, ...}`` (the port's ``ckpt_{step}.pt`` train state) whose
     other values are not tensors is unwrapped to ``sd``."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
-    if isinstance(sd, dict) and "state_dict" in sd and all(
-            not hasattr(v, "shape") for k, v in sd.items() if k != "state_dict"):
-        sd = sd["state_dict"]
+    for key in ("state_dict", "model"):
+        if isinstance(sd, dict) and isinstance(sd.get(key), dict) and all(
+                not hasattr(v, "shape") for k, v in sd.items() if k != key):
+            return sd[key]
     return sd
 
 
@@ -79,9 +81,14 @@ def load_any_checkpoint(path: Optional[str], cfg: ModelConfig
                         ) -> Optional[Dict[str, torch.Tensor]]:
     """``path`` as a port ``state_dict``: a torch file by its suffix, any
     other file as the JAX package's msgpack parameters (mapped by
-    :func:`from_jax_params` with ``cfg``). None for no path."""
+    :func:`from_jax_params` with ``cfg``; a train state ``{step, params,
+    opt_state}`` of its ``save_checkpoint`` is unwrapped to ``params``, as
+    the JAX fine-tune loop does). None for no path."""
     if not path:
         return None
     if path.endswith((".pkl", ".pth", ".pt", ".bin")):
         return load_torch_checkpoint(path)
-    return from_jax_params(load_params(path), cfg)
+    tree = load_params(path)
+    if isinstance(tree.get("params"), dict):
+        tree = tree["params"]
+    return from_jax_params(tree, cfg)

@@ -74,17 +74,23 @@ def save_params(path: str, model: torch.nn.Module) -> str:
     return path
 
 
-def partial_restore(model: torch.nn.Module, state_dict: Dict[str, torch.Tensor]
-                    ) -> Tuple[List[str], List[str]]:
+def partial_restore(model: torch.nn.Module, state_dict: Dict[str, torch.Tensor],
+                    verbose: bool = True) -> Tuple[List[str], List[str]]:
     """Key-and-shape-intersection restore: every tensor of ``state_dict``
     whose key the model has, with the same shape, is copied in (cast to the
     model's dtype); the rest is ignored, and what the source does not cover
     keeps its value (a pretrain checkpoint leaves ``cls_head`` at its init).
-    Returns ``(loaded, skipped)``, both source keys."""
+    Returns ``(loaded, skipped)``, both source keys. With ``verbose`` it
+    prints the JAX package's line, counting parameters (the JAX tree's
+    leaves; the sincos buffers are not among them)."""
     own = model.state_dict()
     loaded, skipped = [], []
     for k, v in state_dict.items():
         fits = k in own and tuple(v.shape) == tuple(own[k].shape)
         (loaded if fits else skipped).append(k)
     model.load_state_dict({k: state_dict[k] for k in loaded}, strict=False)
+    if verbose:
+        params = {k for k, _ in model.named_parameters()}
+        print(f"[partial_restore] loaded {sum(k in params for k in loaded)} / target "
+              f"{len(params)} leaves; ignored {len(skipped)} source leaves")
     return loaded, skipped

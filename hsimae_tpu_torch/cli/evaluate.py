@@ -3,12 +3,16 @@ encoder-only HSIMAE, report OA/AA/kappa/per-class as one JSON line, and
 save the prediction colormaps.
 
     python -m hsimae_tpu_torch.cli.evaluate --synthetic --num-classes 7 \\
-        [--params finetuned.pt] [--samples-per-class 10 --seed 3407] \\
+        [--params finetuned.pt | --artifact model.pt2] \\
+        [--samples-per-class 10 --seed 3407] \\
         [--out runs/eval] [--device cuda] [--batch-size 4096]
 
 ``--params`` takes a torch state dict with the reference's names (``.pt``,
 ``.pkl``, ``.pth``, ``.bin``) or the JAX package's ``.msgpack``; without it
-the model keeps a seeded random init (``--seed``). ``--samples-per-class``
+(and without ``--artifact``) the model keeps a seeded random init
+(``--seed``). ``--artifact`` classifies through a serving artifact of
+``hsimae_tpu_torch.cli.export`` instead, on ``--device``, and reads the
+class count from it; it excludes ``--params``. ``--samples-per-class``
 draws the fine-tune's few-shot split again (the generator of ``--seed``) and
 scores only the pixels it left out. ``--out`` receives ``scene_pred.png``
 and ``scene_pred_masked.png``.
@@ -31,7 +35,7 @@ from hsimae_tpu_torch.cli.common import (
 from hsimae_tpu_torch.config import EvalConfig
 from hsimae_tpu_torch.data.gwpca import apply_gwpca
 from hsimae_tpu_torch.data.sampling import sample_per_class
-from hsimae_tpu_torch.train.evaluate import evaluate_scene
+from hsimae_tpu_torch.train.evaluate import evaluate_scene, evaluate_scene_artifact
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -40,8 +44,12 @@ def build_parser() -> argparse.ArgumentParser:
     add_model_args(p)
     add_data_args(p, labeled=True)
     p.add_argument("--params", default=None, help=".msgpack, or a torch .pt/.pkl state dict")
-    p.add_argument("--num-classes", type=int, required=True,
-                   help="including background class 0")
+    p.add_argument("--artifact", default=None,
+                   help="serving artifact (hsimae_tpu_torch.cli.export) to evaluate instead "
+                        "of --params: full-scene eval without model source")
+    p.add_argument("--num-classes", type=int, default=None,
+                   help="including background class 0 (required without --artifact; read "
+                        "from the artifact otherwise)")
     p.add_argument("--batch-size", type=int, default=4096)
     p.add_argument("--out", default=None, help="dir for colormap PNGs")
     p.add_argument("--device", default="cuda", help="torch device (cuda, cuda:1, cpu)")
@@ -71,11 +79,23 @@ def prepare(args):
 
 
 def main(argv=None):
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.params and args.artifact:
+        parser.error("--params and --artifact exclude each other")
+    if not args.artifact and args.num_classes is None:
+        parser.error("--num-classes is required without --artifact")
     scene, gt, mcfg = prepare(args)
-    res = evaluate_scene(scene, gt, load_any_checkpoint(args.params, mcfg), mcfg,
-                         args.num_classes, EvalConfig(batch_size=args.batch_size),
-                         device=args.device, seed=args.seed, save_dir=args.out, name="scene")
+    ecfg = EvalConfig(batch_size=args.batch_size)
+    if args.artifact:
+        from hsimae_tpu_torch.serving import load_classifier
+
+        res = evaluate_scene_artifact(scene, gt, load_classifier(args.artifact, args.device),
+                                      ecfg, save_dir=args.out, name="scene")
+    else:
+        res = evaluate_scene(scene, gt, load_any_checkpoint(args.params, mcfg), mcfg,
+                             args.num_classes, ecfg, device=args.device, seed=args.seed,
+                             save_dir=args.out, name="scene")
     m = res.metrics
     print(json.dumps({
         "oa": round(100 * m.oa, 2), "aa": round(100 * m.aa, 2),

@@ -4,11 +4,15 @@ on one CUDA card (or the CPU with ``--device cpu``).
     python -m hsimae_tpu_torch.cli.pretrain --synthetic --epochs 2 \\
         --batch-size 64 --model HSIMAE-S --workdir runs/pt [--device cuda]
 
-Writes ``ckpt_{step}.pt`` every ``--checkpoint-every`` steps (at epoch
-ends), ``params_final.pt`` (a state dict with the reference's names) and
+Writes a checkpoint every ``--checkpoint-every`` steps (at epoch ends),
+``params_final.pt`` (a state dict with the reference's names) and
 ``train_log.npy`` into ``--workdir``, and resumes from its latest
-checkpoint unless ``--no-resume``. bf16 compute by default (``--no-bf16``
-for f32).
+checkpoint unless ``--no-resume``. ``--ckpt-backend msgpack`` (the default)
+writes ``ckpt_{step}.pt`` on the training thread and keeps all;
+``--ckpt-backend orbax`` (the JAX package's name; no orbax is used) writes
+``<step>/state.pt`` on a background thread and keeps the newest
+``--ckpt-max-keep``. ``--profile DIR`` writes a ``torch.profiler`` trace of
+the second epoch. bf16 compute by default (``--no-bf16`` for f32).
 """
 
 from __future__ import annotations
@@ -56,9 +60,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint-every", type=int, default=1000, dest="ckpt_every",
                    help="save a resumable checkpoint every N steps (0 = final only)")
     p.add_argument("--no-resume", dest="resume", action="store_false", default=True)
+    p.add_argument("--ckpt-backend", choices=["msgpack", "orbax"], default="msgpack",
+                   help="orbax = background saves + managed retention "
+                        "(checkpoints/async_io.py; no orbax used); msgpack = one synchronous "
+                        "self-contained file per checkpoint")
+    p.add_argument("--ckpt-max-keep", type=int, default=3,
+                   help="orbax backend: checkpoints retained on disk (0 = keep all); ignored "
+                        "by msgpack, which keeps all")
     p.add_argument("--adam-mu-dtype", choices=["float32", "bfloat16"], default="float32",
                    help="storage dtype of Adam's first moment")
     p.add_argument("--device", default="cuda", help="torch device (cuda, cuda:1, cpu)")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of one steady epoch")
     return p
 
 
@@ -76,7 +89,8 @@ def prepare(args):
     cfg = PretrainConfig(
         mask_ratio=args.mask_ratio, lr=args.lr, weight_decay=args.wd,
         batch_size=args.batch_size, epochs=args.epochs, seed=args.seed,
-        checkpoint_every_steps=args.ckpt_every,
+        checkpoint_every_steps=args.ckpt_every, checkpoint_backend=args.ckpt_backend,
+        ckpt_max_to_keep=args.ckpt_max_keep or None,
         adam_mu_dtype=None if args.adam_mu_dtype == "float32" else args.adam_mu_dtype)
     return source, index, model_config(args), cfg
 
@@ -86,7 +100,8 @@ def main(argv=None):
     source, index, mcfg, cfg = prepare(args)
     print(f"[pretrain] {len(index.scene_max)} scenes, {len(index)} patches")
     model, hist = run_pretraining(source, index.locs, mcfg, cfg, workdir=args.workdir,
-                                  resume=args.resume, device=args.device)
+                                  resume=args.resume, device=args.device,
+                                  profile_dir=args.profile)
     if hist["epoch_loss"]:
         print(f"[pretrain] done; final epoch loss {hist['epoch_loss'][-1]:.4f}")
     return model, hist

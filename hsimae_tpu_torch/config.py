@@ -10,8 +10,11 @@ Port-owned copy of ``hsimae_tpu/config.py`` (``ModelConfig``, ``PRESETS``,
   :func:`hsimae_tpu_torch.ops.fused_block.fused_encoder_block`, which takes
   the plain PyTorch version only for tensors on the CPU;
 * ``PretrainConfig`` has no ``fused_steps`` (the TPU ``lax.scan`` dispatch
-  path) and no ``checkpoint_backend``/``ckpt_max_to_keep`` (orbax is not
-  ported); ``adam_mu_dtype`` stays a string.
+  path); ``checkpoint_backend`` keeps the JAX names, so a JAX command line
+  carries over, but no orbax is used: ``"msgpack"`` is the port's
+  synchronous ``ckpt_{step}.pt`` files, ``"orbax"`` the background writer
+  with retention of :mod:`hsimae_tpu_torch.checkpoints.async_io`;
+  ``adam_mu_dtype`` stays a string.
 """
 
 from __future__ import annotations
@@ -141,6 +144,12 @@ class PretrainConfig:
     seed: int = 42
     log_every: int = 50
     checkpoint_every_steps: int = 0  # 0 = only the final parameters
+    # "msgpack": synchronous ckpt_{step}.pt files (checkpoints/io.py), all
+    # kept; "orbax": the background writer with retention
+    # (checkpoints/async_io.py; the JAX package's name, no orbax used)
+    checkpoint_backend: str = "msgpack"
+    # checkpoints the "orbax" backend keeps on disk (None = keep all)
+    ckpt_max_to_keep: Optional[int] = 3
 
 
 @dataclasses.dataclass(frozen=True)

@@ -22,6 +22,7 @@ and the decoder always run the Block modules.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -41,7 +42,12 @@ from hsimae_tpu_torch.models.layers import (
 )
 from hsimae_tpu_torch.models.masking import GridMask, scatter_tokens, spatial_spectral_mask
 from hsimae_tpu_torch.models.pos_embed import sincos_3d
-from hsimae_tpu_torch.ops.fused_block import fused_encoder_block, kernel_weights, params_from_block
+from hsimae_tpu_torch.ops.fused_block import (
+    fused_block_op,
+    fused_encoder_block,
+    kernel_weights,
+    params_from_block,
+)
 
 # per block stack, the drop-path keep masks of each block: (attention, MLP),
 # or None for a block whose rate is 0
@@ -112,6 +118,8 @@ class HSIMAE(nn.Module):
         self.norm = LayerNorm(c.embed_dim)
         # (block-list name, dtype) -> (weights' addresses and versions, kernel weights, weights)
         self._kernel_params: dict = {}
+        # block-list name -> [(route, tensors)] while given_kernel_weights holds
+        self._given_kernel_weights: Optional[dict] = None
         if with_decoder:
             self.decoder_embed = Linear(c.embed_dim, c.decoder_dim, True, c.compute_dtype)
             self.decoder_blocks = blocks(c.decoder_dim, c.decoder_num_heads,
@@ -182,6 +190,21 @@ class HSIMAE(nn.Module):
             self._kernel_params[(name, dtype)] = hit
         return hit[1]
 
+    @contextlib.contextmanager
+    def given_kernel_weights(self, weights: dict):
+        """Within this context the encoder stacks on the kernel path take
+        their weights from ``weights``, block-list name -> one
+        :func:`pack_tensors` pair ``(route, tensors)`` a block, and run each
+        block through the registered op ``torch.ops.hsimae.fused_block``
+        in place of :meth:`kernel_params` and the ctypes wrapper: the
+        serving export traces the model so, with the weights as the
+        program's inputs."""
+        self._given_kernel_weights = weights
+        try:
+            yield self
+        finally:
+            self._given_kernel_weights = None
+
     def _run_blocks(self, name: str, x: torch.Tensor,
                     keep: Optional[list] = None) -> torch.Tensor:
         """Apply the Blocks of list ``name``. On the inference path with
@@ -194,6 +217,10 @@ class HSIMAE(nn.Module):
             # with compute_dtype=bf16 the residual stream is rounded to bf16
             # where the Block modules keep it f32 (as in the JAX package)
             x = x.to(self.cfg.compute_dtype).contiguous()
+            if self._given_kernel_weights is not None:
+                for route, tensors in self._given_kernel_weights[name]:
+                    x = fused_block_op(x, tensors, route, self.cfg.num_heads)
+                return x
             for p in self.kernel_params(name):
                 x = fused_encoder_block(x, p, self.cfg.num_heads)
             return x

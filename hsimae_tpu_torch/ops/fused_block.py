@@ -29,6 +29,11 @@ TPU compile workaround) has no counterpart.
   ``TF32X3_LAUNCHES``, ``TF32X3_D256_LAUNCHES`` and ``WGMMA_LAUNCHES``
   count launches of the float32 kernels at D 64/128 and D 256 and of the
   bfloat16 kernel.
+* :func:`fused_block_op` registers the wrapper as the operator
+  ``torch.ops.hsimae.fused_block`` (CUDA: the wrapper; CPU: the plain
+  version; fake: ``empty_like(x)``), with the weights flattened by
+  :func:`pack_tensors`, so an exported program (``hsimae_tpu_torch.serving``)
+  runs the kernels.
 """
 
 from __future__ import annotations
@@ -105,24 +110,31 @@ class BlockParams(NamedTuple):
     b2: torch.Tensor  # [D]
 
 
-def params_from_block(block) -> BlockParams:
-    """A :class:`hsimae_tpu_torch.models.layers.Block`'s weights in matmul
-    layout (``Linear.weight [out, in]`` transposed to ``[in, out]``)."""
-    a, m = block.attn, block.mlp
+def params_from_state(state: dict, prefix: str = "") -> BlockParams:
+    """Block ``prefix`` (``"blocks_1.3."``) of a state dict with the
+    reference's names, in matmul layout (``Linear.weight [out, in]``
+    transposed to ``[in, out]``)."""
 
-    def t(lin):
-        return lin.weight.detach().t().contiguous()
+    def t(name):
+        return state[f"{prefix}{name}.weight"].detach().t().contiguous()
 
-    def b(lin):
-        return lin.bias.detach()
+    def v(name, leaf):
+        return state[f"{prefix}{name}.{leaf}"].detach()
 
     return BlockParams(
-        ln1_scale=block.norm1.weight.detach(), ln1_bias=block.norm1.bias.detach(),
-        wq=t(a.q), bq=b(a.q), wk=t(a.k), bk=b(a.k), wv=t(a.v), bv=b(a.v),
-        wo=t(a.proj), bo=b(a.proj),
-        ln2_scale=block.norm2.weight.detach(), ln2_bias=block.norm2.bias.detach(),
-        w1=t(m.w1), b1=b(m.w1), w3=t(m.w3), b3=b(m.w3), w2=t(m.w2), b2=b(m.w2),
+        ln1_scale=v("norm1", "weight"), ln1_bias=v("norm1", "bias"),
+        wq=t("attn.q"), bq=v("attn.q", "bias"), wk=t("attn.k"), bk=v("attn.k", "bias"),
+        wv=t("attn.v"), bv=v("attn.v", "bias"), wo=t("attn.proj"), bo=v("attn.proj", "bias"),
+        ln2_scale=v("norm2", "weight"), ln2_bias=v("norm2", "bias"),
+        w1=t("mlp.w1"), b1=v("mlp.w1", "bias"), w3=t("mlp.w3"), b3=v("mlp.w3", "bias"),
+        w2=t("mlp.w2"), b2=v("mlp.w2", "bias"),
     )
+
+
+def params_from_block(block) -> BlockParams:
+    """A :class:`hsimae_tpu_torch.models.layers.Block`'s weights in matmul
+    layout (:func:`params_from_state` of its state dict)."""
+    return params_from_state(block.state_dict())
 
 
 class BlockPack(NamedTuple):
@@ -447,6 +459,29 @@ def _launch_tf32x3(x: torch.Tensor, pack: Tf32Pack | Tf32D256Pack, num_heads: in
     return out
 
 
+# The route of each weight form: the kernel library it launches on a CUDA
+# tensor, or the plain version for BlockParams (no kernel takes them there).
+ROUTES = {BlockPack: "fused_block_wgmma", Tf32Pack: "fused_block_tf32x3",
+          Tf32D256Pack: "fused_block_tf32x3_d256", BlockParams: "block_reference"}
+_PACK_OF_ROUTE = {route: cls for cls, route in ROUTES.items()}
+
+
+def pack_tensors(p: BlockParams | BlockPack | Tf32Pack | Tf32D256Pack) -> tuple:
+    """``(route, tensors)``: the route of ``p``'s form and its tensors in one
+    flat list, the 18 :class:`BlockParams` first (:func:`tensors_pack`
+    inverts it)."""
+    if isinstance(p, BlockParams):
+        return ROUTES[BlockParams], list(p)
+    return ROUTES[type(p)], [*p.params, *p[1:]]
+
+
+def tensors_pack(route: str, tensors) -> BlockParams | BlockPack | Tf32Pack | Tf32D256Pack:
+    """The weights :func:`pack_tensors` flattened, in their form again."""
+    params = BlockParams(*tensors[:len(BlockParams._fields)])
+    cls = _PACK_OF_ROUTE[route]
+    return params if cls is BlockParams else cls(params, *tensors[len(BlockParams._fields):])
+
+
 def fused_encoder_block(x: torch.Tensor, p: BlockParams | BlockPack | Tf32Pack | Tf32D256Pack,
                         num_heads: int) -> torch.Tensor:
     """Apply one transformer block to ``[M, S, D]`` sequences.
@@ -482,3 +517,25 @@ def fused_encoder_block(x: torch.Tensor, p: BlockParams | BlockPack | Tf32Pack |
         return _launch_tf32x3(x, p, num_heads)
     _check(x, params, num_heads, max_seq=0)  # raises: no float32 kernel takes this input
     raise ValueError(f"no float32 kernel takes x of shape {tuple(x.shape)}")
+
+
+# The block as a registered operator, ``torch.ops.hsimae.fused_block``: a
+# ``torch.export`` program (the serving artifact) cannot trace the ctypes
+# launch, but it holds an op call, with the weights as the program's inputs.
+@torch.library.custom_op("hsimae::fused_block", mutates_args=(), device_types="cuda")
+def fused_block_op(x: torch.Tensor, weights: list[torch.Tensor], route: str,
+                   num_heads: int) -> torch.Tensor:
+    """:func:`fused_encoder_block` on the weights :func:`pack_tensors` gave
+    as ``(route, weights)``. On a CUDA tensor: the route's kernel, with its
+    checks and launch counter; on a CPU tensor: :func:`block_reference`."""
+    return fused_encoder_block(x, tensors_pack(route, weights), num_heads)
+
+
+@fused_block_op.register_kernel("cpu")
+def _fused_block_op_cpu(x, weights, route, num_heads):
+    return block_reference(x, BlockParams(*weights[:len(BlockParams._fields)]), num_heads)
+
+
+@fused_block_op.register_fake
+def _fused_block_op_fake(x, weights, route, num_heads):
+    return torch.empty_like(x)

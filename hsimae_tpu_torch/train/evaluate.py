@@ -14,7 +14,11 @@ Counterpart of ``classify_scene`` / ``evaluate_scene`` in
 * with a ``save_dir``, the map is written as ``<name>_pred.png`` and, with
   background where ``test_gt == 0``, ``<name>_pred_masked.png``.
 
-Data-parallel meshes and the serving-artifact evaluators are not ported yet.
+* :func:`classify_scene_artifact` / :func:`evaluate_scene_artifact` do the
+  same through a loaded serving artifact
+  (:class:`hsimae_tpu_torch.serving.ExportedClassifier`): no model source.
+
+Data-parallel meshes are not ported yet.
 """
 
 from __future__ import annotations
@@ -45,7 +49,7 @@ def _load_weights(model: torch.nn.Module, state_dict: Dict[str, torch.Tensor]) -
     """:func:`partial_restore`, so keys the model lacks (a decoder) and
     tensors of another shape (a head with another class count) are ignored,
     but a ``cls_head`` left uncovered raises; other uncovered keys warn."""
-    loaded, skipped = partial_restore(model, state_dict)
+    loaded, skipped = partial_restore(model, state_dict, verbose=False)
     covered = set(loaded)
     missing = [k for k in model.state_dict() if k not in covered]
     if any(k.split(".")[0] == CLS_HEAD_NAME for k in missing):
@@ -106,6 +110,25 @@ def classify_scene(
     return predict_scene(model, scene, cfg)
 
 
+@torch.inference_mode()
+def classify_scene_artifact(scene: np.ndarray, classifier, cfg: EvalConfig = EvalConfig()
+                            ) -> np.ndarray:
+    """Predict a label for every pixel through a loaded serving artifact ->
+    [h, w] int32 (1-based, background excluded, as :func:`classify_scene`).
+    Each batch is gathered on the artifact's device and stays there; the
+    artifact's buckets pad it."""
+    img_size = int(classifier.model_meta.get("img_size", 9))
+    source = ScenePatchSource(scene, img_size, device=classifier.device)
+    h, w = scene.shape[:2]
+    n = h * w
+    bs = min(cfg.batch_size, n)
+    out = np.zeros(n, np.int32)
+    for chunk, valid in batch_indices(n, bs, shuffle=False):
+        pred = classifier.predict(source.gather_pixels(chunk)).cpu().numpy()
+        out[chunk[valid]] = pred[valid]
+    return out.reshape(h, w)
+
+
 def _finish_eval(pred_map: np.ndarray, test_gt: np.ndarray, cfg: EvalConfig,
                  save_dir: Optional[str], name: str) -> SceneEvalResult:
     m = classification_metrics(test_gt, pred_map)
@@ -130,4 +153,16 @@ def evaluate_scene(
     name: str = "scene",
 ) -> SceneEvalResult:
     pred_map = classify_scene(scene, params, model_cfg, num_classes, cfg, device, seed)
+    return _finish_eval(pred_map, test_gt, cfg, save_dir, name)
+
+
+def evaluate_scene_artifact(
+    scene: np.ndarray,
+    test_gt: np.ndarray,
+    classifier,
+    cfg: EvalConfig = EvalConfig(),
+    save_dir: Optional[str] = None,
+    name: str = "scene",
+) -> SceneEvalResult:
+    pred_map = classify_scene_artifact(scene, classifier, cfg)
     return _finish_eval(pred_map, test_gt, cfg, save_dir, name)

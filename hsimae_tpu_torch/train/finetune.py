@@ -53,6 +53,9 @@ from hsimae_tpu_torch.train.pretrain import step_generator
 from hsimae_tpu_torch.utils.logger import MetricLogger
 from hsimae_tpu_torch.utils.metrics import Metrics, metrics_from_raw_confusion
 
+# the encoder's parameters: a pretrained dict must cover at least one
+ENCODER_PARAMS = ("patch_embed", "blocks_1", "blocks_2", "blocks", "norm")
+
 
 def cross_entropy_ignore0(logits: torch.Tensor, labels: torch.Tensor,
                           weight: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -183,7 +186,12 @@ def dual_branch_finetune(
     n_class = split.n_classes
     model = build_dual_vit(model_cfg, n_class, drop_path=cfg.drop_path, seed=seed, device="cpu")
     if pretrained is not None:
-        partial_restore(model, pretrained)
+        loaded, _ = partial_restore(model, pretrained)
+        if not any(k.split(".")[0] in ENCODER_PARAMS for k in loaded):
+            raise ValueError(
+                f"the pretrained weights cover no encoder parameter of the model (matched "
+                f"{len(loaded)} keys, e.g. {sorted(pretrained)[:3]}): not a checkpoint of this "
+                "model, or a train state left wrapped?")
     model.to(device)
 
     rng_np = np.random.default_rng(seed)

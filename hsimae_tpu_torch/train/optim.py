@@ -120,13 +120,15 @@ class AdamW:
                     dst.copy_(src)
         self.count = k
 
-    def state_dict(self) -> Dict:
-        """Moments by parameter name (CPU copies) and the update count."""
+    def state_dict(self, cpu: bool = True) -> Dict:
+        """Moments by parameter name (CPU copies; with ``cpu=False`` the
+        moments themselves, for a caller that copies them) and the update
+        count."""
         out = {"count": self.count, "mu": {}, "nu": {}}
         for g, mus, nus in zip(self.param_groups, self.mu, self.nu):
             for name, m, v in zip(g["names"], mus, nus):
-                out["mu"][name] = m.detach().cpu()
-                out["nu"][name] = v.detach().cpu()
+                out["mu"][name] = m.detach().cpu() if cpu else m.detach()
+                out["nu"][name] = v.detach().cpu() if cpu else v.detach()
         return out
 
     def load_state_dict(self, state: Dict) -> None:

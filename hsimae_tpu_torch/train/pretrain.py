@@ -11,7 +11,14 @@ Counterpart of ``make_pretrain_step`` and ``run_pretraining`` in
   masks) comes from a generator seeded from ``(seed, global step)``, or is
   injected, so a resumed run draws what an uninterrupted run draws;
 * the padded tail of an epoch has weight 0, so each cut counts once;
-* losses stay on the device and are summed once an epoch.
+* losses stay on the device and are summed once an epoch;
+* checkpoints go through the backend ``cfg.checkpoint_backend`` names:
+  ``"msgpack"``, the synchronous ``ckpt_{step}.pt`` files, or ``"orbax"``,
+  the background writer with retention
+  (:class:`hsimae_tpu_torch.checkpoints.async_io.AsyncCheckpointer`); a
+  resume that finds only the other backend's checkpoints raises;
+* with ``profile_dir``, the second epoch of the call is traced with
+  ``torch.profiler`` (the first holds the warm-up).
 
 The step runs the Block modules under autograd: the fused-block kernel has
 no backward and serves the inference path only.
@@ -19,6 +26,7 @@ no backward and serves the inference path only.
 
 from __future__ import annotations
 
+import os
 import random as _pyrandom
 import time
 from typing import Callable, NamedTuple, Optional, Tuple
@@ -26,6 +34,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from hsimae_tpu_torch.checkpoints.async_io import AsyncCheckpointer, checkpoint_steps
 from hsimae_tpu_torch.checkpoints.io import (
     latest_checkpoint,
     restore_checkpoint,
@@ -103,6 +112,14 @@ def make_pretrain_step(model: HSIMAE, optimizer: AdamW, sched: Callable[[int], f
     return step
 
 
+def _profiler(profile_dir: str, device) -> torch.profiler.profile:
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    return torch.profiler.profile(activities=acts)
+
+
 def run_pretraining(
     source: MultiScenePatchSource,
     locs: np.ndarray,
@@ -113,14 +130,22 @@ def run_pretraining(
     logger: Optional[MetricLogger] = None,
     stop_after_epochs: Optional[int] = None,
     device: str | torch.device = "cuda",
+    profile_dir: Optional[str] = None,
 ):
     """Epoch loop over the cut index ``locs`` -> (model, history) with
-    ``history = {"epoch_loss": [...], "patches_per_sec": [...]}`` for the
-    epochs this call ran. With ``workdir``: checkpoints every
-    ``cfg.checkpoint_every_steps`` steps (at epoch ends), resume from the
-    latest when ``resume``, and ``params_final.pt`` + ``train_log.npy`` at
-    the end. ``stop_after_epochs`` ends the call early (a simulated
-    preemption); the schedule still spans ``cfg.epochs``."""
+    ``history = {"epoch_loss": [...], "patches_per_sec": [...],
+    "checkpoint_seconds": [...]}`` for the epochs this call ran (the last:
+    the step thread's time in each checkpoint save). With ``workdir``:
+    checkpoints every ``cfg.checkpoint_every_steps`` steps (at epoch ends)
+    through ``cfg.checkpoint_backend``, resume from the latest when
+    ``resume``, and ``params_final.pt`` + ``train_log.npy`` at the end.
+    ``stop_after_epochs`` ends the call early (a simulated preemption); the
+    schedule still spans ``cfg.epochs``. ``profile_dir`` receives
+    ``epoch_{n}.trace.json``, a ``torch.profiler`` trace of the call's
+    second epoch ``n``."""
+    if cfg.checkpoint_backend not in ("msgpack", "orbax"):
+        raise ValueError(f"unknown checkpoint_backend {cfg.checkpoint_backend!r} "
+                         "(msgpack or orbax)")
     model = build_hsimae(model_cfg, seed=cfg.seed, device=device)
     n = len(locs)
     bs = min(cfg.batch_size, n)
@@ -131,17 +156,44 @@ def run_pretraining(
         lr_min=cfg.lr_min, b1=cfg.adam_b1, b2=cfg.adam_b2,
         mu_dtype=getattr(torch, cfg.adam_mu_dtype) if cfg.adam_mu_dtype else None)
 
+    ckptr = None
+    if workdir and cfg.checkpoint_backend == "orbax":
+        ckptr = AsyncCheckpointer(workdir, max_to_keep=cfg.ckpt_max_to_keep)
     start_epoch = 0
     if resume and workdir:
-        ck = latest_checkpoint(workdir)
-        if ck:
-            start_epoch = restore_checkpoint(ck, model, optimizer) // steps_per_epoch
-            print(f"[pretrain] resumed from {ck} at epoch {start_epoch}")
+        if ckptr is not None:
+            step = ckptr.restore_latest(model, optimizer)
+            if step is not None:
+                start_epoch = step // steps_per_epoch
+                print(f"[pretrain] resumed from background-writer step {step} "
+                      f"at epoch {start_epoch}")
+        else:
+            ck = latest_checkpoint(workdir)
+            step = restore_checkpoint(ck, model, optimizer) if ck else None
+            if step is not None:
+                start_epoch = step // steps_per_epoch
+                print(f"[pretrain] resumed from {ck} at epoch {start_epoch}")
+        if step is None:
+            # the other backend's checkpoints in the workdir: the backend was
+            # flipped between runs; starting at epoch 0 would overwrite the run
+            if ckptr is not None:
+                other = latest_checkpoint(workdir)
+            else:
+                steps = checkpoint_steps(workdir)
+                other = f"background-writer steps {steps}" if steps else None
+            if other:
+                if ckptr is not None:
+                    ckptr.close()
+                raise RuntimeError(
+                    f"resume requested with --ckpt-backend {cfg.checkpoint_backend!r}, which "
+                    f"found no checkpoint in {workdir}, but the other backend's checkpoints "
+                    f"exist there ({other}); re-run with the backend the workdir was written "
+                    "with, or pass resume=False / a fresh workdir to deliberately start over")
 
     logger = logger or MetricLogger(workdir)
     step_fn = make_pretrain_step(model, optimizer, sched, seed=cfg.seed)
     t_size, l_size = model_cfg.t_size, model_cfg.l_size
-    epoch_losses, rates = [], []
+    epoch_losses, rates, ckpt_seconds = [], [], []
     end_epoch = cfg.epochs
     if stop_after_epochs is not None:
         end_epoch = min(end_epoch, start_epoch + stop_after_epochs)
@@ -149,39 +201,60 @@ def run_pretraining(
     # the cut index lives on the device: a host array would make every
     # step's upload wait for the card
     locs_dev = torch.as_tensor(locs, dtype=torch.int64).to(device)
-    for epoch in range(start_epoch, end_epoch):
-        # per-epoch reseeded shuffle and grid shapes
-        ep_rng = np.random.default_rng(cfg.seed + epoch)
-        shape_rng = _pyrandom.Random(cfg.seed * 1000 + epoch)
-        ep_steps, step_losses = 0, []
-        t0 = time.perf_counter()
-        batches = list(batch_indices(n, bs, rng=ep_rng))
-        rows = torch.as_tensor(np.stack([c for c, _ in batches])).to(device)  # one upload
-        for (len_t, len_l), group in group_by_shape(range(len(batches)), t_size, l_size,
-                                                     cfg.mask_ratio, shape_rng).items():
-            for i in group:
-                valid = batches[i][1]
-                # the wrapped duplicates of the padded tail weigh 0
-                w = None if valid.all() else torch.as_tensor(valid, dtype=torch.float32,
-                                                             device=device)
-                loss = step_fn(source.gather(locs_dev[rows[i]]), len_t, len_l, w)
-                ep_steps += 1
-                step_losses.append(loss)
-                if ep_steps % cfg.log_every == 0:
-                    logger.log(step=optimizer.count, loss=float(loss),
-                               lr=sched(optimizer.count - 1))
-        ep_loss = float(torch.stack(step_losses).sum())  # one sync an epoch
-        dt = time.perf_counter() - t0
-        mean_loss = ep_loss / max(ep_steps, 1)
-        pps = ep_steps * bs / dt
-        epoch_losses.append(mean_loss)
-        rates.append(pps)
-        logger.log(epoch=epoch, epoch_loss=mean_loss, patches_per_sec=pps)
-        print(f"[pretrain] epoch {epoch}: loss {mean_loss:.4f}  {pps:,.0f} patches/s")
-        if workdir and cfg.checkpoint_every_steps and (
-                (epoch + 1) * steps_per_epoch % cfg.checkpoint_every_steps < steps_per_epoch):
-            save_checkpoint(workdir, optimizer.count, model, optimizer)
+    prof = None
+    # the background writer is waited for and closed on every exit path
+    try:
+        for epoch in range(start_epoch, end_epoch):
+            if profile_dir and epoch == start_epoch + 1:
+                prof = _profiler(profile_dir, device)
+                prof.start()
+            # per-epoch reseeded shuffle and grid shapes
+            ep_rng = np.random.default_rng(cfg.seed + epoch)
+            shape_rng = _pyrandom.Random(cfg.seed * 1000 + epoch)
+            ep_steps, step_losses = 0, []
+            t0 = time.perf_counter()
+            batches = list(batch_indices(n, bs, rng=ep_rng))
+            rows = torch.as_tensor(np.stack([c for c, _ in batches])).to(device)  # one upload
+            for (len_t, len_l), group in group_by_shape(range(len(batches)), t_size, l_size,
+                                                         cfg.mask_ratio, shape_rng).items():
+                for i in group:
+                    valid = batches[i][1]
+                    # the wrapped duplicates of the padded tail weigh 0
+                    w = None if valid.all() else torch.as_tensor(valid, dtype=torch.float32,
+                                                                 device=device)
+                    loss = step_fn(source.gather(locs_dev[rows[i]]), len_t, len_l, w)
+                    ep_steps += 1
+                    step_losses.append(loss)
+                    if ep_steps % cfg.log_every == 0:
+                        logger.log(step=optimizer.count, loss=float(loss),
+                                   lr=sched(optimizer.count - 1))
+            ep_loss = float(torch.stack(step_losses).sum())  # one sync an epoch
+            dt = time.perf_counter() - t0
+            if prof is not None:
+                prof.stop()
+                prof.export_chrome_trace(os.path.join(profile_dir, f"epoch_{epoch}.trace.json"))
+                prof = None
+            mean_loss = ep_loss / max(ep_steps, 1)
+            pps = ep_steps * bs / dt
+            epoch_losses.append(mean_loss)
+            rates.append(pps)
+            logger.log(epoch=epoch, epoch_loss=mean_loss, patches_per_sec=pps)
+            print(f"[pretrain] epoch {epoch}: loss {mean_loss:.4f}  {pps:,.0f} patches/s")
+            if workdir and cfg.checkpoint_every_steps and (
+                    (epoch + 1) * steps_per_epoch % cfg.checkpoint_every_steps < steps_per_epoch):
+                t0 = time.perf_counter()
+                if ckptr is not None:
+                    ckptr.save(optimizer.count, model, optimizer)  # returns at once
+                else:
+                    save_checkpoint(workdir, optimizer.count, model, optimizer)
+                ckpt_seconds.append(time.perf_counter() - t0)
+    finally:
+        if prof is not None:
+            prof.stop()
+        if ckptr is not None:
+            ckptr.close()  # every enqueued save on disk before returning
     if workdir:
         save_params(f"{workdir}/params_final.pt", model)
         np.save(f"{workdir}/train_log.npy", np.array([epoch_losses, []], dtype=object))
-    return model, {"epoch_loss": epoch_losses, "patches_per_sec": rates}
+    return model, {"epoch_loss": epoch_losses, "patches_per_sec": rates,
+                   "checkpoint_seconds": ckpt_seconds}

@@ -307,3 +307,74 @@ def test_f32_model_launches_only_the_tf32x3_kernel(card):
             th.fused_encoder_block = orig
     assert after == (before[0] + 2 * cfg.s_depth + cfg.fusion_depth, before[1], before[2])
     assert scaled_err(got, ref) <= 5e-4
+
+
+# The serving artifact's launch shapes: at bucket b, blocks_1 [4b, 9, D],
+# blocks_2 [9b, 4, D] and fusion [b, 36, D].
+SERVING_ROUTES = {"tf32x3": (torch.float32, 128, 2e-5), "d256": (torch.float32, 256, 2e-5),
+                  "wgmma": (torch.bfloat16, 128, 5e-2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", sorted(SERVING_ROUTES))
+@pytest.mark.parametrize("b", [1, 64, 1024])
+def test_registered_op_matches_plain_version_at_bucket_shapes(card, kernel, b):
+    """torch.ops.hsimae.fused_block, as the exported program calls it, on the
+    route's kernel (one launch a call, of it only) against block_reference."""
+    dtype, d, tol = SERVING_ROUTES[kernel]
+    p = random_block(d, swiglu_hidden_dim(d), seed=b + d)
+    name, tensors = tfb.pack_tensors(tfb.kernel_weights(p, dtype))
+    g = torch.Generator().manual_seed(b)
+    for m, s in ((4 * b, 9), (9 * b, 4), (b, 36)):
+        x = torch.randn(m, s, d, generator=g).cuda().to(dtype)
+        before = counts()
+        got = torch.ops.hsimae.fused_block(x, tensors, name, d // 16)
+        assert tuple(a - c for a, c in zip(counts(), before)) == route(dtype, d)
+        assert scaled_err(got, tfb.block_reference(x, p, d // 16)) <= tol
+
+
+def _serving_case(dtype):
+    from hsimae_tpu_torch import config as tcfg
+    from hsimae_tpu_torch.models import hsimae as th
+    from hsimae_tpu_torch.serving import export as texp
+
+    cfg = tcfg.preset("HSIMAE-B", compute_dtype=dtype)
+    model = th.build_hsi_vit(cfg, 7, seed=1, device="cuda")
+    blob = texp.export_classifier(model.state_dict(), cfg, 7, batch_sizes=(64,),
+                                  platforms=("cuda",))
+    return cfg, model, texp.load_classifier(blob, device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-4), (torch.bfloat16, 5e-2)])
+def test_cuda_artifact_launches_only_the_routes_kernel(card, dtype, tol):
+    """An HSIMAE-B artifact exported on the card: 21 launches a program call,
+    all of the route's kernel, named in the program's graph; logits close
+    to the live model on the same weights (f32: 21 blocks of <= 2e-5)."""
+    cfg, model, clf = _serving_case(dtype)
+    kernel = "fused_block_wgmma" if dtype == torch.bfloat16 else "fused_block_tf32x3"
+    assert f"'{kernel}'" in clf._calls[64].code  # the op's route argument in the graph
+    x = torch.randn(64, 9, 9, 32, generator=torch.Generator().manual_seed(2)).cuda()
+    before = counts()
+    got = clf.predict_logits(x)
+    launches = tuple(a - c for a, c in zip(counts(), before))
+    assert launches == tuple(21 * n for n in route(dtype, 128))
+    assert got.device.type == "cuda" and got.shape == (64, 7)
+    with torch.inference_mode():
+        want = model.classify(x)
+    assert scaled_err(got, want) <= tol
+
+
+@pytest.mark.cuda
+def test_cuda_artifact_builds_no_pack_per_request(card, monkeypatch):
+    """kernel_weights runs at load (once a block), never in predict_logits."""
+    calls = []
+    real = tfb.kernel_weights
+    monkeypatch.setattr(tfb, "kernel_weights", lambda *a: calls.append(1) or real(*a))
+    _, _, clf = _serving_case(torch.bfloat16)
+    n_load = len(calls)
+    x = torch.randn(200, 9, 9, 32).cuda()
+    for n in (1, 64, 200):
+        clf.predict_logits(x[:n])
+    torch.cuda.synchronize()
+    assert n_load == 2 * 21 and len(calls) == n_load  # export and load build; requests none
