@@ -7,8 +7,9 @@ and writes it on the training thread, stalling the step loop for the whole
 write. Here:
 
 * :meth:`AsyncCheckpointer.save` snapshots the model's state dict and the
-  optimizer's moments into new host memory (pinned, for a CUDA state) with
-  copies enqueued on the current stream, records a CUDA event and returns.
+  optimizer's moments into new host memory (one pinned buffer, for a CUDA
+  state) with copies enqueued on the current stream, records a CUDA event
+  and returns.
   The optimizer updates parameters and moments in place on the same stream,
   so the copies, enqueued before the next step, read the state of this
   step; the writer thread waits on the event before it reads the host
@@ -35,25 +36,43 @@ from typing import List, Optional
 import torch
 
 STATE_FILE = "state.pt"
+_ALIGN = 64  # bytes: each tensor's slot in the pinned snapshot buffer starts aligned
 
 
-def _host_copy(t: torch.Tensor) -> torch.Tensor:
-    """A copy of ``t`` in new host memory, enqueued (CUDA: pinned memory,
-    non-blocking on the current stream) or made (CPU) now."""
-    t = t.detach()
-    if t.device.type == "cpu":
-        return t.clone()
-    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    out.copy_(t, non_blocking=True)
+def _leaves(tree, out: list) -> list:
+    if isinstance(tree, dict):
+        for v in tree.values():
+            _leaves(v, out)
+    elif isinstance(tree, torch.Tensor):
+        out.append(tree)
     return out
 
 
 def _snapshot(tree):
-    if isinstance(tree, dict):
-        return {k: _snapshot(v) for k, v in tree.items()}
-    if isinstance(tree, torch.Tensor):
-        return _host_copy(tree)
-    return tree
+    """``tree`` with every tensor copied to new host memory: a CPU tensor
+    cloned now, a CUDA tensor by a non-blocking copy on the current stream
+    into one pinned buffer for the whole tree (one allocation, which the
+    caching host allocator hands back on the next save)."""
+    card = [t for t in _leaves(tree, []) if t.is_cuda]
+    sizes = [-(-t.numel() * t.element_size() // _ALIGN) * _ALIGN for t in card]
+    buf = torch.empty(sum(sizes), dtype=torch.uint8, pin_memory=True) if card else None
+    slots, offset = {}, 0
+    for t, size in zip(card, sizes):
+        slots[id(t)] = buf[offset:offset + t.numel() * t.element_size()]
+        offset += size
+
+    def copy(node):
+        if isinstance(node, dict):
+            return {k: copy(v) for k, v in node.items()}
+        if not isinstance(node, torch.Tensor):
+            return node
+        if not node.is_cuda:
+            return node.detach().clone()
+        out = slots[id(node)].view(node.dtype).view(node.shape)
+        out.copy_(node.detach(), non_blocking=True)
+        return out
+
+    return copy(tree)
 
 
 def checkpoint_steps(directory: str) -> List[int]:

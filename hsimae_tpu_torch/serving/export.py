@@ -49,18 +49,17 @@ PATCH_EMBED_KEY = "patch_embed.proj.weight"
 _Q8_KEYS = frozenset({"q8", "scale"})
 
 
-def quantize_params_int8(state: Dict[str, torch.Tensor],
-                         dense_keys: Sequence[str] = (PATCH_EMBED_KEY,)) -> dict:
+def quantize_params_int8(state: Dict[str, torch.Tensor]) -> dict:
     """Weight-only int8: every 2-D float tensor (a ``Linear`` weight
-    ``[out, in]``) and every tensor named in ``dense_keys`` becomes
-    ``{"q8": int8, "scale": float32}``, symmetric per output channel (axis
-    0): ``s = max|w| over the other axes / 127`` (0 -> 1), ``q8 =
-    clip(round(w / s), -127, 127)``, the arithmetic of the JAX package's
-    quantizer on its ``[in, out]`` kernels. bfloat16 tensors are quantized
-    too, from their float32 values; every other tensor stays as it is."""
+    ``[out, in]``) and the patch embed's weight becomes ``{"q8": int8,
+    "scale": float32}``, symmetric per output channel (axis 0): ``s =
+    max|w| over the other axes / 127`` (0 -> 1), ``q8 = clip(round(w / s),
+    -127, 127)``, the arithmetic of the JAX package's quantizer on its
+    ``[in, out]`` kernels. bfloat16 tensors are quantized too, from their
+    float32 values; every other tensor stays as it is."""
     out = {}
     for k, t in state.items():
-        if t.is_floating_point() and (t.dim() == 2 or (k in dense_keys and t.dim() > 1)):
+        if t.is_floating_point() and (t.dim() == 2 or k == PATCH_EMBED_KEY):
             tf = t.float()
             s = tf.abs().amax(dim=tuple(range(1, t.dim())), keepdim=True) / 127.0
             s = torch.where(s == 0, torch.ones_like(s), s)
