@@ -7,9 +7,9 @@ and writes it on the training thread, stalling the step loop for the whole
 write. Here:
 
 * :meth:`AsyncCheckpointer.save` snapshots the model's state dict and the
-  optimizer's moments into new host memory (one pinned buffer, for a CUDA
-  state) with copies enqueued on the current stream, records a CUDA event
-  and returns.
+  optimizer's moments into new host memory (for a CUDA state: one gather on
+  the device and one copy into a pinned buffer a dtype) enqueued on the
+  current stream, records a CUDA event and returns.
   The optimizer updates parameters and moments in place on the same stream,
   so the copies, enqueued before the next step, read the state of this
   step; the writer thread waits on the event before it reads the host
@@ -36,7 +36,6 @@ from typing import List, Optional
 import torch
 
 STATE_FILE = "state.pt"
-_ALIGN = 64  # bytes: each tensor's slot in the pinned snapshot buffer starts aligned
 
 
 def _leaves(tree, out: list) -> list:
@@ -50,27 +49,28 @@ def _leaves(tree, out: list) -> list:
 
 def _snapshot(tree):
     """``tree`` with every tensor copied to new host memory: a CPU tensor
-    cloned now, a CUDA tensor by a non-blocking copy on the current stream
-    into one pinned buffer for the whole tree (one allocation, which the
-    caching host allocator hands back on the next save)."""
-    card = [t for t in _leaves(tree, []) if t.is_cuda]
-    sizes = [-(-t.numel() * t.element_size() // _ALIGN) * _ALIGN for t in card]
-    buf = torch.empty(sum(sizes), dtype=torch.uint8, pin_memory=True) if card else None
-    slots, offset = {}, 0
-    for t, size in zip(card, sizes):
-        slots[id(t)] = buf[offset:offset + t.numel() * t.element_size()]
-        offset += size
+    cloned now; the CUDA tensors of each dtype gathered by one ``torch.cat``
+    on the current stream and copied, non-blocking, into one pinned buffer
+    of that dtype (one storage a dtype, which ``torch.save`` requires)."""
+    groups = {}
+    for t in {id(t): t for t in _leaves(tree, []) if t.is_cuda}.values():
+        groups.setdefault(t.dtype, []).append(t)
+    slots = {}
+    for dtype, card in groups.items():
+        flat = torch.cat([t.detach().reshape(-1) for t in card])
+        host = torch.empty(flat.numel(), dtype=dtype, pin_memory=True)
+        host.copy_(flat, non_blocking=True)
+        offset = 0
+        for t in card:
+            slots[id(t)] = host[offset:offset + t.numel()].view(t.shape)
+            offset += t.numel()
 
     def copy(node):
         if isinstance(node, dict):
             return {k: copy(v) for k, v in node.items()}
         if not isinstance(node, torch.Tensor):
             return node
-        if not node.is_cuda:
-            return node.detach().clone()
-        out = slots[id(node)].view(node.dtype).view(node.shape)
-        out.copy_(node.detach(), non_blocking=True)
-        return out
+        return slots[id(node)] if node.is_cuda else node.detach().clone()
 
     return copy(tree)
 

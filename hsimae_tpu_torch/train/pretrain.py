@@ -161,34 +161,29 @@ def run_pretraining(
         ckptr = AsyncCheckpointer(workdir, max_to_keep=cfg.ckpt_max_to_keep)
     start_epoch = 0
     if resume and workdir:
+        # each backend's latest step, and whether the other backend wrote here
         if ckptr is not None:
+            where = "the background writer"
             step = ckptr.restore_latest(model, optimizer)
-            if step is not None:
-                start_epoch = step // steps_per_epoch
-                print(f"[pretrain] resumed from background-writer step {step} "
-                      f"at epoch {start_epoch}")
+            other = latest_checkpoint(workdir)
         else:
-            ck = latest_checkpoint(workdir)
-            step = restore_checkpoint(ck, model, optimizer) if ck else None
-            if step is not None:
-                start_epoch = step // steps_per_epoch
-                print(f"[pretrain] resumed from {ck} at epoch {start_epoch}")
-        if step is None:
-            # the other backend's checkpoints in the workdir: the backend was
-            # flipped between runs; starting at epoch 0 would overwrite the run
+            where = latest_checkpoint(workdir)
+            step = restore_checkpoint(where, model, optimizer) if where else None
+            other = checkpoint_steps(workdir)
+            other = f"background-writer steps {other}" if other else None
+        if step is not None:
+            start_epoch = step // steps_per_epoch
+            print(f"[pretrain] resumed from {where} at step {step}, epoch {start_epoch}")
+        elif other:
+            # the backend was flipped between runs: starting at epoch 0 would
+            # overwrite the run
             if ckptr is not None:
-                other = latest_checkpoint(workdir)
-            else:
-                steps = checkpoint_steps(workdir)
-                other = f"background-writer steps {steps}" if steps else None
-            if other:
-                if ckptr is not None:
-                    ckptr.close()
-                raise RuntimeError(
-                    f"resume requested with --ckpt-backend {cfg.checkpoint_backend!r}, which "
-                    f"found no checkpoint in {workdir}, but the other backend's checkpoints "
-                    f"exist there ({other}); re-run with the backend the workdir was written "
-                    "with, or pass resume=False / a fresh workdir to deliberately start over")
+                ckptr.close()
+            raise RuntimeError(
+                f"resume requested with --ckpt-backend {cfg.checkpoint_backend!r}, which "
+                f"found no checkpoint in {workdir}, but the other backend's checkpoints "
+                f"exist there ({other}); re-run with the backend the workdir was written "
+                "with, or pass resume=False / a fresh workdir to deliberately start over")
 
     logger = logger or MetricLogger(workdir)
     step_fn = make_pretrain_step(model, optimizer, sched, seed=cfg.seed)

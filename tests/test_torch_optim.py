@@ -26,7 +26,7 @@ from hsimae_tpu_torch import config as tcfg
 from hsimae_tpu_torch.checkpoints.convert import from_jax_params
 from hsimae_tpu_torch.train import optim as to
 
-DROPPED = {"fused_steps", "checkpoint_backend", "ckpt_max_to_keep"}  # TPU dispatch; orbax
+DROPPED = {"fused_steps"}  # the TPU's lax.scan dispatch path
 
 
 def test_pretrain_config_fields_and_defaults():
