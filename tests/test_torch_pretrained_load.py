@@ -33,6 +33,18 @@ ARGV = ["--synthetic", "--synthetic-size", "20", "--synthetic-bands", "40",
 ENCODER = ("patch_embed.", "blocks_1.", "blocks_2.", "blocks.", "norm.")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread while this module runs: the fast tier runs six
+    pytest workers on the machine's cores, and torch's default pool (a
+    thread per core in each worker) oversubscribes them, which made these
+    small-op tests ~8x slower. Restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def finetune(path):
     from hsimae_tpu_torch.cli import finetune as cli
 

@@ -34,6 +34,18 @@ TINY = tcfg.preset("HSIMAE-S", depth=2, s_depth=1, decoder_depth=1, embed_dim=32
                    decoder_dim=16, decoder_num_heads=2)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread while this module runs: the fast tier runs six
+    pytest workers on the machine's cores, and torch's default pool (a
+    thread per core in each worker) oversubscribes them, which made these
+    small-op tests ~8x slower. Restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def corpus():
     scenes = [apply_gwpca(s, 32) for s in

@@ -46,6 +46,18 @@ JC, TC = jcfg.preset("HSIMAE-S", **SMALL), tcfg.preset("HSIMAE-S", **SMALL)
 RNG_X = np.random.default_rng(0).standard_normal((19, 9, 9, 32)).astype(np.float32)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread while this module runs: the fast tier runs six
+    pytest workers on the machine's cores, and torch's default pool (a
+    thread per core in each worker) oversubscribes them, which made these
+    small-op tests ~8x slower. Restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def export(params, cfg=TC, **kw):
     kw.setdefault("batch_sizes", (2, 8))
     return texp.export_classifier(params, cfg, NC, platforms=("cpu",), **kw)
