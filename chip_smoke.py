@@ -116,11 +116,30 @@ Phases, each of a fixed size; any failure exits non-zero:
    of pixels; the int8 map's agreement with the float32 map is printed (not
    a gate); e. warm pixels/s through the artifact against ``predict_scene``,
    one ``predict_logits`` of 1024 in ms, peak memory;
+15. data parallelism (HSIMAE-B). The script needs one card and NCCL refuses
+   two ranks on one device, so 2 ranks share cuda:0 over gloo, in jobs of
+   ``python3 -m torch.distributed.run ... chip_smoke.py --rank-job ...``:
+   a/b. phase 8's three float32 pretrain steps (batch 64, the last 3 rows
+   padding) and phase 12b's three dual steps (unlabeled 43 wrapped to 44)
+   on 2 ranks against one process on the card, held like phase 8;
+   c. ``cli.pretrain`` (phase 9's bf16 setting) on 2 ranks: two epochs,
+   then a run stopped after epoch 1 and resumed (epoch-2 loss within 1e-3),
+   epoch 1 within 1e-2 of phase 9's one process, the workdirs holding one
+   writer's files; global patches/s printed (two ranks on one card: not a
+   speed claim); d. the same CLI's parts at one rank over NCCL, epoch 1
+   within 1e-3 of phase 9's; e. ``cli.evaluate --dp 2`` on the phase-4
+   scene in both dtypes: each rank 126 launches of the dtype's kernel and
+   none of the others, the map against phases 4/5 on >= 99.9% of pixels;
+   f. ``cli.finetune`` on 2 ranks (bf16, 20 epochs, ``--eval``, from phase
+   9's ``params_final.pt``): no launch in a dual step, 21 a val batch
+   share, 126 a rank in ``--eval``, the map against ``block_reference`` on
+   the same weights on >= 99.9% of pixels. Logs in
+   ``chiprun_out/smoke_dp*.log`` and ``smoke_nccl.log``;
 7. (last) a ``kernels`` JSON line, with each kernel's launches on each path
    (counts set to 0 just before the path), the card's name and power limit,
    then ``{"ok": true, "device": {...}}``.
 
-Phases run in the order 1-6, 11, 8-10, 12, 13, 14, 7.
+Phases run in the order 1-6, 11, 8-10, 12, 13, 14, 15, 7.
 """
 
 from __future__ import annotations
@@ -128,6 +147,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import shutil
 import struct
 import subprocess
@@ -252,6 +272,15 @@ SERVE_VARIANTS = {"f32": (["--no-bf16"], "float32"),
                   "int8": (["--quantize", "int8", "--no-bf16"], "float32"),
                   "int8_bf16": (["--quantize", "int8", "--params-dtype", "bfloat16"], "bfloat16")}
 MAX_INT8_SIZE = 0.6  # the int8 artifact's bytes over the f32 one's, as JAX's test holds
+
+# phase 15: data parallelism. The script needs one card and NCCL refuses two ranks on one
+# device, so 2 ranks share cuda:0 over gloo; NCCL runs at one rank
+DP_RANKS = 2
+DP_STEP_VALID = 61  # 15a: phase 8's global batch of 64, its last 3 rows padding (weight 0)
+DP_UNLABELED = 44  # 15b: phase 12b's 43 unlabeled rows padded (wrapped) to a multiple of 2
+DP_FINETUNE_EPOCHS = 20  # 15f
+DP_SINGLE_RTOL = 1e-2  # 15c: epoch-1 loss against phase 9's single process, relative
+DP_EVAL_LAUNCHES = 6 * 21  # 15e/f: 6 scene batches of 4096, 2048 rows a rank, 21 a batch
 SCENE_LAUNCHES = 6 * 4 * 21  # 6 gathers of 4096, 4 calls of bucket 1024 each, 21 a call
 # the serving child: loads an artifact where hsimae_tpu_torch.models cannot be imported,
 # answers each request size, and prints one JSON line (launches, pack builds, timings)
@@ -710,6 +739,16 @@ def keep_to(keep, dev):
             for k, v in keep.items()}
 
 
+def dual_draws_to(d, dev):
+    """A dual step's injected draws on ``dev``."""
+    from hsimae_tpu_torch.models.masking import GridMask
+    from hsimae_tpu_torch.train.finetune import DualDraws
+
+    return DualDraws(tuple(f.to(dev) for f in d.flips), tuple(f.to(dev) for f in d.flips_u),
+                     GridMask(*(t.to(dev) for t in d.grid)), keep_to(d.drop_keep_cls, dev),
+                     keep_to(d.drop_keep_rec, dev))
+
+
 def dual_step_card_vs_cpu(smi_line: str, fb) -> dict:
     """Phase 12b: three float32 HSIMAE-B dual steps on the card and the same
     three on the CPU, from one seeded init, one labeled batch with a padded
@@ -719,8 +758,7 @@ def dual_step_card_vs_cpu(smi_line: str, fb) -> dict:
     import torch
     from hsimae_tpu_torch.config import preset
     from hsimae_tpu_torch.models.hsimae import build_dual_vit
-    from hsimae_tpu_torch.models.masking import GridMask
-    from hsimae_tpu_torch.train.finetune import DualDraws, draw_dual, make_dual_step
+    from hsimae_tpu_torch.train.finetune import draw_dual, make_dual_step
     from hsimae_tpu_torch.train.optim import finetune_optimizer
 
     cfg = preset("HSIMAE-B", compute_dtype=torch.float32)
@@ -742,12 +780,8 @@ def dual_step_card_vs_cpu(smi_line: str, fb) -> dict:
         losses = []
         reset_counts(fb)
         for (lt, ll), d in zip(DUAL_GRIDS, draws):
-            d = DualDraws(tuple(f.to(device) for f in d.flips),
-                          tuple(f.to(device) for f in d.flips_u),
-                          GridMask(*(t.to(device) for t in d.grid)),
-                          keep_to(d.drop_keep_cls, device), keep_to(d.drop_keep_rec, device))
             loss, rec, _ = step(x.to(device), y.to(device), w.to(device), xu.to(device),
-                                lt, ll, draws=d)
+                                lt, ll, draws=dual_draws_to(d, device))
             losses += [loss.item(), rec.item()]
         if any(launch_counts(fb).values()):
             fail(f"a dual step launched a block kernel: {launch_counts(fb)}")
@@ -1194,7 +1228,7 @@ def scene_main_path(smi_line: str, fb, hsimae_model, model: str) -> dict:
     model through the Block modules; bfloat16: every block as
     ``block_reference``, the kernel's own semantics) on >= 99.9% of pixels,
     and the warm batch loops through the kernel and the modules. Returns the
-    launches per kernel on this path."""
+    launches per kernel on this path and the maps by dtype."""
     import torch
     from hsimae_tpu_torch.cli import evaluate as cli_evaluate
     from hsimae_tpu_torch.config import EvalConfig
@@ -1276,7 +1310,7 @@ def scene_main_path(smi_line: str, fb, hsimae_model, model: str) -> dict:
             fail(f"{model} {dname} prediction map agrees with {ref_name} on {agree:.5f} of "
                  f"pixels (< {MIN_AGREEMENT})")
         torch.cuda.empty_cache()
-    return launches
+    return launches, {dname: r[1].pred_map for dname, r in results.items()}
 
 
 def serving(smi_line: str, fb, params_path: Path, runs: Path, gen, max_err: dict) -> dict:
@@ -1428,6 +1462,403 @@ def serving(smi_line: str, fb, params_path: Path, runs: Path, gen, max_err: dict
     return launches
 
 
+# ----------------------------- phase 15: data parallelism -----------------------------
+
+
+def dp_pretrain_steps(device, mesh=None):
+    """Phase 15a's three float32 HSIMAE-B pretrain steps: phase 8's batch of
+    64 with its last 3 rows padding (weight 0), one seeded init, injected
+    draws on both kept grids; under ``mesh``, this rank's rows of it ->
+    (losses, parameters on the CPU)."""
+    import torch
+    from hsimae_tpu_torch.config import preset
+    from hsimae_tpu_torch.models.hsimae import build_hsimae
+    from hsimae_tpu_torch.parallel.mesh import mesh_slice
+    from hsimae_tpu_torch.train.optim import pretrain_optimizer
+    from hsimae_tpu_torch.train.pretrain import draw_pretrain, make_pretrain_step
+
+    cfg = preset("HSIMAE-B", compute_dtype=torch.float32)
+    x = torch.rand(STEP_BATCH, cfg.img_size, cfg.img_size, cfg.bands,
+                   generator=torch.Generator().manual_seed(7))
+    w = torch.ones(STEP_BATCH)
+    w[DP_STEP_VALID:] = 0.0
+    probe = build_hsimae(cfg, device="cpu")
+    gen = torch.Generator().manual_seed(8)
+    draws = [draw_pretrain(probe, STEP_BATCH, lt, ll, gen, "cpu") for lt, ll in STEP_GRIDS]
+    model = build_hsimae(cfg, seed=0, device=device)
+    opt, sched = pretrain_optimizer(model, 5e-3, 0.05, total_steps=STEP_TOTAL)
+    step = make_pretrain_step(model, opt, sched, mesh=mesh)
+    rows = mesh_slice(STEP_BATCH, mesh)
+    losses = [step(x[rows].to(device), lt, ll, w.to(device), draws=to_device(d, device)).item()
+              for (lt, ll), d in zip(STEP_GRIDS, draws)]
+    return losses, {k: v.detach().cpu() for k, v in model.named_parameters()}
+
+
+def dp_dual_steps(device, mesh=None):
+    """Phase 15b's three float32 HSIMAE-B dual steps at phase 12b's setting
+    (labeled 32 with a padded tail, its 43 unlabeled rows wrapped to 44,
+    mask ratio 0.8, lambda 10, drop-path 0.2, injected draws on both kept
+    grids); under ``mesh``, this rank's rows of both batches -> (losses and
+    reconstruction losses, parameters on the CPU)."""
+    import torch
+    from hsimae_tpu_torch.config import preset
+    from hsimae_tpu_torch.models.hsimae import build_dual_vit
+    from hsimae_tpu_torch.parallel.mesh import mesh_slice
+    from hsimae_tpu_torch.train.finetune import draw_dual, make_dual_step
+    from hsimae_tpu_torch.train.optim import finetune_optimizer
+
+    cfg = preset("HSIMAE-B", compute_dtype=torch.float32)
+    g = torch.Generator().manual_seed(12)
+    x = torch.rand(DUAL_BATCH, cfg.img_size, cfg.img_size, cfg.bands, generator=g)
+    xu = torch.rand(DUAL_UNLABELED, cfg.img_size, cfg.img_size, cfg.bands, generator=g)
+    xu = torch.cat([xu, xu[:DP_UNLABELED - DUAL_UNLABELED]])  # wrapped, as the loop pads
+    y = torch.randint(1, FT_CLASSES, (DUAL_BATCH,), generator=g)
+    w = torch.ones(DUAL_BATCH)
+    y[DUAL_VALID:], w[DUAL_VALID:] = 0, 0.0
+    probe = build_dual_vit(cfg, FT_CLASSES, device="cpu")
+    draws = [draw_dual(probe, DUAL_BATCH, DP_UNLABELED, lt, ll, g, "cpu") for lt, ll in DUAL_GRIDS]
+    model = build_dual_vit(cfg, FT_CLASSES, seed=0, device=device)
+    opt, sched = finetune_optimizer(model, 1e-3, 5e-3, epochs=len(DUAL_GRIDS), steps_per_epoch=1)
+    step = make_dual_step(model, opt, sched, lamda=10.0, mesh=mesh)
+    rows, rows_u = mesh_slice(DUAL_BATCH, mesh), mesh_slice(DP_UNLABELED, mesh)
+    losses = []
+    for (lt, ll), d in zip(DUAL_GRIDS, draws):
+        loss, rec, _ = step(x[rows].to(device), y.to(device), w.to(device),
+                            xu[rows_u].to(device), lt, ll, draws=dual_draws_to(d, device))
+        losses += [loss.item(), rec.item()]
+    return losses, {k: v.detach().cpu() for k, v in model.named_parameters()}
+
+
+def dp_finetune_ranks(fb, pretrained: str, log_path: Path) -> dict:
+    """Phase 15f on one rank: ``cli.finetune.main`` (bf16, 20 epochs,
+    ``--eval``) with its steps wrapped to read this rank's launch counts:
+    none in a dual step, 21 of the bf16 kernel in each val batch share, and
+    the ``--eval`` launches. Returns them, the losses and (rank 0) what the
+    map's reference needs."""
+    import torch
+    from hsimae_tpu_torch.cli import finetune as cli
+    from hsimae_tpu_torch.parallel.mesh import is_main_process
+    from hsimae_tpu_torch.train import finetune as ft
+
+    own = MAIN_KERNEL["bfloat16"]
+    seen = {"steps": 0, "val_batches": 0, "val_launches": dict.fromkeys(KERNELS, 0)}
+    make_step, make_ev, evaluate_scene = ft.make_dual_step, ft.make_eval_metrics_step, \
+        cli.evaluate_scene
+
+    def counted_step(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def run(*sa, **skw):
+            reset_counts(fb)
+            out = step(*sa, **skw)
+            if any(launch_counts(fb).values()):
+                fail(f"a data-parallel dual step launched a block kernel: {launch_counts(fb)}")
+            seen["steps"] += 1
+            return out
+        return run
+
+    def counted_ev(model, n_classes):
+        ev = make_ev(model, n_classes)
+
+        def run(x, y, w):
+            reset_counts(fb)
+            out = ev(x, y, w)
+            counts = launch_counts(fb)
+            if counts != {k: 21 * (k == own) for k in KERNELS}:
+                fail(f"a data-parallel val batch share launched {counts}, expected 21 of {own}")
+            seen["val_batches"] += 1
+            for k in KERNELS:
+                seen["val_launches"][k] += counts[k]
+            return out
+        return run
+
+    def counted_eval(*a, **kw):
+        reset_counts(fb)
+        out = evaluate_scene(*a, **kw)
+        torch.cuda.synchronize()
+        seen["eval_launches"] = launch_counts(fb)
+        seen["eval_args"] = a
+        return out
+
+    argv = FINETUNE_ARGV + ["--epochs", str(DP_FINETUNE_EPOCHS), "--pretrained", pretrained]
+    ft.make_dual_step, ft.make_eval_metrics_step, cli.evaluate_scene = \
+        counted_step, counted_ev, counted_eval
+    t0 = time.perf_counter()
+    try:
+        with open(log_path, "w") as log, contextlib.redirect_stdout(log):
+            res, ev = cli.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        ft.make_dual_step, ft.make_eval_metrics_step, cli.evaluate_scene = \
+            make_step, make_ev, evaluate_scene
+    hist = res.history
+    out = {"wall_s": time.perf_counter() - t0, "steps": seen["steps"],
+           "val_batches": seen["val_batches"], "val_launches": seen["val_launches"],
+           "eval_launches": seen["eval_launches"], "pred_map": ev.pred_map,
+           "curves": [hist[k] for k in ("loss", "loss_rec", "val_loss")],
+           "val": [res.val_metrics.oa, res.val_metrics.aa, res.val_metrics.kappa],
+           "test": [ev.metrics.oa, ev.metrics.aa, ev.metrics.kappa],
+           "epoch_seconds": hist["epoch_seconds"]}
+    if is_main_process():
+        scene, _, params, mcfg, num_classes = seen["eval_args"][:5]
+        out["reference_inputs"] = (scene, params, mcfg, num_classes)
+    return out
+
+
+def rank_job(kind: str, report_dir: str, extra: list) -> int:
+    """One rank of a ``torch.distributed.run`` job of phase 15 (``python3
+    -m torch.distributed.run ... chip_smoke.py --rank-job KIND DIR ...``):
+    ``dp`` runs 15a, 15b, 15c and 15f on this rank; ``nccl`` runs 15d.
+    Writes ``DIR/rank{r}.pt``."""
+    import torch
+    import torch.distributed as dist
+    from hsimae_tpu_torch.ops import fused_block as fb
+    from hsimae_tpu_torch.parallel.mesh import (
+        default_mesh,
+        init_distributed,
+        is_main_process,
+        shutdown_distributed,
+    )
+
+    device = init_distributed(device="cuda")
+    rank, out = dist.get_rank(), {"backend": dist.get_backend()}
+    runs = Path(report_dir).parent
+    try:
+        if kind == "dp":
+            spe = int(extra[0])
+            mesh = default_mesh()
+            t0 = time.perf_counter()
+            out["pretrain_steps"] = dp_pretrain_steps(device, mesh)
+            out["dual_steps"] = dp_dual_steps(device, mesh)
+            out["steps_s"] = time.perf_counter() - t0
+            if not is_main_process():  # the parameters are compared once
+                out["pretrain_steps"] = out["pretrain_steps"][0]
+                out["dual_steps"] = out["dual_steps"][0]
+            torch.cuda.empty_cache()
+
+            # 15c: cli.pretrain, two epochs; then a run stopped after epoch 1, resumed
+            from hsimae_tpu_torch.cli import pretrain as cli
+            from hsimae_tpu_torch.train.pretrain import run_pretraining
+
+            argv = PRETRAIN_ARGV + ["--checkpoint-every", str(spe)]
+            reset_counts(fb)
+            t0 = time.perf_counter()
+            out["full"] = cli.main(argv + ["--workdir", str(runs / "dp_full")])[1]
+            out["full_s"] = time.perf_counter() - t0
+            args = cli.build_parser().parse_args(argv + ["--workdir", str(runs / "dp_resumed")])
+            source, index, mcfg, pcfg = cli.prepare(args)
+            run_pretraining(source, index.locs, mcfg, pcfg, workdir=args.workdir,
+                            resume=False, stop_after_epochs=1, device=args.device)
+            del source
+            out["resumed"] = cli.main(argv + ["--workdir", str(runs / "dp_resumed")])[1]
+            out["pretrain_launches"] = launch_counts(fb)
+            torch.cuda.empty_cache()
+
+            # 15f: cli.finetune from phase 9's bf16 weights, --eval
+            out["finetune"] = dp_finetune_ranks(
+                fb, extra[1], Path(extra[2]) / f"smoke_dp_finetune_rank{rank}.log")
+        else:  # nccl: cli.pretrain's parts at one rank, stopped after epoch 1
+            from hsimae_tpu_torch.cli import pretrain as cli
+            from hsimae_tpu_torch.train.pretrain import run_pretraining
+
+            args = cli.build_parser().parse_args(PRETRAIN_ARGV)
+            source, index, mcfg, pcfg = cli.prepare(args)
+            out["mesh"] = str(default_mesh())
+            reset_counts(fb)
+            _, out["hist"] = run_pretraining(source, index.locs, mcfg, pcfg, resume=False,
+                                             stop_after_epochs=1, device=args.device)
+            out["pretrain_launches"] = launch_counts(fb)
+        torch.save(out, Path(report_dir) / f"rank{rank}.pt")
+    finally:
+        shutdown_distributed()
+    return 0
+
+
+def launch_ranks(n: int, kind: str, report_dir: Path, log_path: Path, extra: list,
+                 timeout: int) -> list:
+    """Run ``n`` ranks of :func:`rank_job` under ``python3 -m
+    torch.distributed.run`` (output to ``log_path``) -> each rank's report."""
+    import socket
+
+    import torch
+
+    shutil.rmtree(report_dir, ignore_errors=True)
+    report_dir.mkdir(parents=True)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(n),
+           "--master-port", str(port), str(Path(__file__).resolve()), "--rank-job", kind,
+           str(report_dir), *extra]
+    # the ranks split the host's cores (torch.distributed.run would give each one thread)
+    env = dict(os.environ, OMP_NUM_THREADS=str(max(1, (os.cpu_count() or 1) // n)))
+    with open(log_path, "w") as log:
+        rc = subprocess.run(cmd, cwd=Path(__file__).resolve().parent, stdout=log,
+                            stderr=subprocess.STDOUT, timeout=timeout, env=env).returncode
+    if rc:
+        tail = log_path.read_text()[-4000:]
+        fail(f"torch.distributed.run of {n} ranks ({kind}) exited {rc}:\n{tail}")
+    return [torch.load(report_dir / f"rank{r}.pt", weights_only=False) for r in range(n)]
+
+
+def scaled_err(a: dict, b: dict) -> float:
+    return max(((a[k] - v).abs() / v.abs().clamp(min=1.0)).max().item() for k, v in b.items())
+
+
+def data_parallel(smi_line: str, fb, hsimae_model, runs: Path, log_dir: Path, spe: int,
+                  single_epoch_1: float, scene_maps: dict) -> dict:
+    """Phase 15: the data-parallel paths on the card. 15a/b: the steps of
+    phases 8 and 12b on 2 ranks (gloo, both on cuda:0) against one process
+    on the card; 15c: ``cli.pretrain`` under ``torch.distributed.run
+    --nproc-per-node 2`` (two epochs; a run stopped after epoch 1 and
+    resumed), rank 0's files only; 15d: the same CLI's parts at one rank,
+    over NCCL; 15e: ``cli.evaluate --dp 2`` in both dtypes, each rank's
+    launches and the map against phases 4/5; 15f: ``cli.finetune`` on 2
+    ranks, bf16, ``--eval``. Returns the launches per kernel on each path
+    that runs a kernel, summed over the ranks."""
+    import torch
+    from hsimae_tpu_torch.cli import evaluate as cli_evaluate
+    from hsimae_tpu_torch.config import EvalConfig
+    from hsimae_tpu_torch.train.evaluate import build_classifier, predict_scene
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    # ---- 15a, 15b: one process on the card, then the two ranks ----
+    single_pt, single_dual = dp_pretrain_steps("cuda"), dp_dual_steps("cuda")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    reports = launch_ranks(DP_RANKS, "dp", runs / "dp_reports", log_dir / "smoke_dp.log",
+                           [str(spe), str(runs / "bf16" / "params_final.pt"), str(log_dir)],
+                           timeout=900)
+    job_s = time.perf_counter() - t0
+    for name, (losses, params) in (("pretrain_steps", single_pt), ("dual_steps", single_dual)):
+        rank_losses = [r[name][0] if isinstance(r[name], tuple) else r[name] for r in reports]
+        loss_rel = max(abs(a - b) / abs(b) for rl in rank_losses for a, b in zip(rl, losses))
+        param_err = scaled_err(reports[0][name][1], params)
+        row = {"phase": f"data-parallel {name}", "model": "HSIMAE-B", "dtype": "float32",
+               "ranks": DP_RANKS, "backend": reports[0]["backend"],
+               "rank_losses": rank_losses, "single_process_losses": losses,
+               "max_loss_rel": loss_rel, "loss_rtol": STEP_LOSS_RTOL,
+               "max_param_scaled_err": param_err, "param_tol": STEP_PARAM_TOL,
+               "card": smi_line}
+        print(json.dumps(row), flush=True)
+        if reports[0]["backend"] != "gloo" or loss_rel > STEP_LOSS_RTOL \
+                or param_err > STEP_PARAM_TOL or not all(math.isfinite(v) for v in losses):
+            fail(f"data-parallel {name} disagree with one process: {row}")
+
+    # ---- 15c: cli.pretrain on 2 ranks ----
+    full, resumed = reports[0]["full"], reports[0]["resumed"]
+    rel = abs(resumed["epoch_loss"][0] - full["epoch_loss"][1]) / abs(full["epoch_loss"][1])
+    rel_single = abs(full["epoch_loss"][0] - single_epoch_1) / abs(single_epoch_1)
+    files = {d: sorted(os.listdir(runs / d)) for d in ("dp_full", "dp_resumed")}
+    want_files = sorted([f"ckpt_{spe}.pt", f"ckpt_{spe}.pt.json", f"ckpt_{2 * spe}.pt",
+                         f"ckpt_{2 * spe}.pt.json", "params_final.pt", "train.jsonl",
+                         "train_log.npy"])
+    epochs_logged = [sum('"epoch_loss"' in line for line in open(runs / d / "train.jsonl"))
+                     for d in ("dp_full", "dp_resumed")]
+    row = {"main_path": "cli.pretrain (torch.distributed.run, 2 ranks)", "model": "HSIMAE-B",
+           "dtype": "bfloat16", "ranks": DP_RANKS, "backend": reports[0]["backend"],
+           "global_batch": PRETRAIN_BATCH, "epoch_loss": full["epoch_loss"],
+           "rank_epoch_loss": [r["full"]["epoch_loss"] for r in reports],
+           "resumed_epoch_2": resumed["epoch_loss"], "resume_rel": rel, "rtol": RESUME_RTOL,
+           "single_process_epoch_1": single_epoch_1, "single_rel": rel_single,
+           "single_rtol": DP_SINGLE_RTOL, "global_patches_per_sec": full["patches_per_sec"],
+           "note": "both ranks share one card over gloo: not a speed claim",
+           "files": files, "epoch_lines_in_train_jsonl": epochs_logged,
+           "launches": [r["pretrain_launches"] for r in reports],
+           "job_s": job_s, "rank0_full_run_s": reports[0]["full_s"], "card": smi_line}
+    print(json.dumps(row), flush=True)
+    if rel > RESUME_RTOL or len(resumed["epoch_loss"]) != 1 or rel_single > DP_SINGLE_RTOL:
+        fail(f"data-parallel cli.pretrain: the resume or the single-process loss disagrees: "
+             f"{row}")
+    if any(f != want_files for f in files.values()) or epochs_logged != [2, 2]:
+        fail(f"data-parallel cli.pretrain wrote other files than rank 0's: {files}, "
+             f"{epochs_logged}")
+    if any(any(r["pretrain_launches"].values()) for r in reports):
+        fail("data-parallel pretraining launched a block kernel")
+
+    # ---- 15d: NCCL at one rank ----
+    t0 = time.perf_counter()
+    nccl = launch_ranks(1, "nccl", runs / "nccl_reports", log_dir / "smoke_nccl.log", [],
+                        timeout=600)[0]
+    loss = nccl["hist"]["epoch_loss"]
+    rel_nccl = abs(loss[0] - single_epoch_1) / abs(single_epoch_1)
+    row = {"main_path": "cli.pretrain parts (torch.distributed.run, 1 rank)",
+           "backend": nccl["backend"], "mesh": nccl["mesh"], "epoch_loss": loss,
+           "single_process_epoch_1": single_epoch_1, "rel": rel_nccl, "rtol": RESUME_RTOL,
+           "patches_per_sec": nccl["hist"]["patches_per_sec"],
+           "job_s": time.perf_counter() - t0, "card": smi_line}
+    print(json.dumps(row), flush=True)
+    if nccl["backend"] != "nccl" or len(loss) != 1 or rel_nccl > RESUME_RTOL \
+            or any(nccl["pretrain_launches"].values()):
+        fail(f"the one-rank NCCL run disagrees with phase 9: {row}")
+
+    # ---- 15e: cli.evaluate --dp 2, both dtypes ----
+    launches = {"cli.evaluate --dp 2": dict.fromkeys(KERNELS, 0)}
+    for dname, argv in MAIN_ARGV.items():
+        own = MAIN_KERNEL[dname]
+        t0 = time.perf_counter()
+        res = cli_evaluate.main(argv + ["--model", "HSIMAE-B", "--dp", str(DP_RANKS)])
+        wall = time.perf_counter() - t0
+        want = {k: DP_EVAL_LAUNCHES * (k == own) for k in KERNELS}
+        agree = float((res.pred_map == scene_maps[dname]).mean())
+        row = {"main_path": "cli.evaluate --dp 2", "model": "HSIMAE-B", "dtype": dname,
+               "kernel": own, "launches_by_rank": res.launches_by_rank,
+               "agreement_with_single_process": agree, "wall_s": wall, "card": smi_line}
+        print(json.dumps(row), flush=True)
+        if any(r != want for r in res.launches_by_rank):
+            fail(f"cli.evaluate --dp 2 {dname}: ranks launched {res.launches_by_rank}, "
+                 f"expected {DP_EVAL_LAUNCHES} of {own} each")
+        if agree < MIN_AGREEMENT:
+            fail(f"cli.evaluate --dp 2 {dname} map agrees with the single process on "
+                 f"{agree:.5f} of pixels (< {MIN_AGREEMENT})")
+        for r in res.launches_by_rank:
+            for k in KERNELS:
+                launches["cli.evaluate --dp 2"][k] += r[k]
+
+    # ---- 15f: cli.finetune on 2 ranks ----
+    own = MAIN_KERNEL["bfloat16"]
+    fts = [r["finetune"] for r in reports]
+    scene, params, mcfg, num_classes = fts[0]["reference_inputs"]
+    clf = build_classifier(params, mcfg.replace(use_kernel=True), num_classes, device="cuda")
+    orig = hsimae_model.fused_encoder_block
+    hsimae_model.fused_encoder_block = lambda h, wt, nh: fb.block_reference(
+        h, wt if isinstance(wt, fb.BlockParams) else wt.params, nh)
+    try:
+        ref_map = predict_scene(clf, scene, EvalConfig())
+    finally:
+        hsimae_model.fused_encoder_block = orig
+    agree = float((ref_map == fts[0]["pred_map"]).mean())
+    row = {"main_path": "cli.finetune (torch.distributed.run, 2 ranks)", "model": "HSIMAE-B",
+           "dtype": "bfloat16", "epochs": DP_FINETUNE_EPOCHS, "kernel": own,
+           "dual_steps_by_rank": [f["steps"] for f in fts],
+           "val_batch_shares_by_rank": [f["val_batches"] for f in fts],
+           "val_launches_by_rank": [f["val_launches"][own] for f in fts],
+           "eval_launches_by_rank": [f["eval_launches"] for f in fts],
+           "maps_equal_across_ranks": bool((fts[0]["pred_map"] == fts[1]["pred_map"]).all()),
+           "agreement_with_block_reference": agree, "val": fts[0]["val"],
+           "test": fts[0]["test"], "final_loss": fts[0]["curves"][0][-1],
+           "rank0_wall_s": fts[0]["wall_s"],
+           "epoch_s_median": sorted(fts[0]["epoch_seconds"])[DP_FINETUNE_EPOCHS // 2],
+           "note": "synthetic scene, not the paper's numbers", "card": smi_line}
+    print(json.dumps(row), flush=True)
+    want_eval = {k: DP_EVAL_LAUNCHES * (k == own) for k in KERNELS}
+    if any(f["eval_launches"] != want_eval for f in fts) or \
+            any(f["val_launches"][own] != 21 * f["val_batches"] for f in fts):
+        fail(f"data-parallel cli.finetune launches are wrong: {row}")
+    if not all(math.isfinite(v) for f in fts for c in f["curves"] for v in c) \
+            or not row["maps_equal_across_ranks"] or agree < MIN_AGREEMENT:
+        fail(f"data-parallel cli.finetune: losses not finite or the --eval map is wrong: {row}")
+    launches["cli.finetune --dp val"] = {k: sum(f["val_launches"][k] for f in fts)
+                                         for k in KERNELS}
+    launches["cli.finetune --dp --eval"] = {k: sum(f["eval_launches"][k] for f in fts)
+                                            for k in KERNELS}
+    print(json.dumps({"phase": "data_parallel", "seconds": time.perf_counter() - t_phase,
+                      "card": smi_line}), flush=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1500,10 +1931,12 @@ def main() -> int:
             torch.cuda.empty_cache()
 
     # ---- 4, 5, 6. main path, HSIMAE-B, float32 then bfloat16, through the CLI ----
-    launches = {"cli.evaluate": scene_main_path(smi_line, fb, hsimae_model, "HSIMAE-B")}
+    launches = {}
+    launches["cli.evaluate"], scene_maps = scene_main_path(smi_line, fb, hsimae_model, "HSIMAE-B")
 
     # ---- 11. main path at HSIMAE-L's width, through the CLI ----
-    launches["cli.evaluate HSIMAE-L"] = scene_main_path(smi_line, fb, hsimae_model, "HSIMAE-L")
+    launches["cli.evaluate HSIMAE-L"] = scene_main_path(smi_line, fb, hsimae_model,
+                                                        "HSIMAE-L")[0]
 
     # ---- 8. pretrain steps, card against CPU (float32) ----
     pretrain_step_card_vs_cpu(smi_line)
@@ -1512,7 +1945,7 @@ def main() -> int:
     # ---- 9. pretraining through the CLI: bf16 (resumed too), then f32 ----
     root = Path(__file__).resolve().parent
     runs = root / "_smoke_runs"
-    cli_pretrain(smi_line, fb, runs)
+    pretrain_row = cli_pretrain(smi_line, fb, runs)
     launches["cli.pretrain"] = dict.fromkeys(KERNELS, 0)  # checked there: none
     torch.cuda.empty_cache()
 
@@ -1541,6 +1974,11 @@ def main() -> int:
 
     # ---- 14. serving: export, a fresh process without the model source, --artifact ----
     launches.update(serving(smi_line, fb, runs / "protocol_last.pt", runs, gen, max_err))
+
+    # ---- 15. data parallelism: 2 ranks on the card over gloo, NCCL at one rank ----
+    launches.update(data_parallel(smi_line, fb, hsimae_model, runs, root / "chiprun_out",
+                                  pretrain_row["steps_per_epoch"],
+                                  pretrain_row["epoch_loss"][0], scene_maps))
     shutil.rmtree(runs, ignore_errors=True)
 
     # ---- 7. result ----
@@ -1577,4 +2015,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-job"]:  # one rank of a phase-15 job
+        sys.exit(rank_job(sys.argv[2], sys.argv[3], sys.argv[4:]))
     sys.exit(main())

@@ -3,17 +3,41 @@ synthetic, one labeled scene or a pretraining corpus) and model-preset
 selection, with the flags and defaults of ``hsimae_tpu/cli/common.py``.
 Weight files of every kind are read by
 :func:`hsimae_tpu_torch.checkpoints.convert.load_any_checkpoint`.
+:func:`join_launched_ranks` joins the process group when the CLI runs under
+``torch.distributed.run``.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 from typing import List, Tuple
 
 import numpy as np
 import torch
 
 from hsimae_tpu_torch.config import ModelConfig, PRESETS, preset
+
+
+def launched_ranks() -> int:
+    """The ranks ``torch.distributed.run`` started (``WORLD_SIZE``; 1 without it)."""
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
+def join_launched_ranks(args) -> bool:
+    """Under ``torch.distributed.run`` (``WORLD_SIZE`` set), unless this
+    process is in a group already: join the process group and point
+    ``args.device`` at this rank's device; the loops then run data-parallel
+    by themselves (at one rank too: its collectives run). Returns whether
+    it joined (the caller leaves the group when done)."""
+    import torch.distributed as dist
+
+    if "WORLD_SIZE" not in os.environ or dist.is_initialized():
+        return False
+    from hsimae_tpu_torch.parallel.mesh import init_distributed
+
+    args.device = str(init_distributed(device=args.device))
+    return True
 
 
 def add_model_args(p: argparse.ArgumentParser) -> None:

@@ -18,6 +18,11 @@ with the fine-tuned weights and scores the pixels not used in training.
 ``--workdir`` receives ``finetuned.pt``, ``train_log.npy``, the metric
 stream and (with ``--eval``) the colormaps; under ``--protocol`` it holds
 ``protocol_runs.jsonl``, from which a restarted protocol resumes.
+
+Under ``python -m torch.distributed.run --nproc-per-node N -m
+hsimae_tpu_torch.cli.finetune ...`` every fine-tune (and ``--eval``, and
+the protocol's runs) runs data-parallel over the N ranks; rank 0 prints and
+writes the workdir.
 """
 
 from __future__ import annotations
@@ -31,11 +36,13 @@ from hsimae_tpu_torch.checkpoints.convert import load_any_checkpoint
 from hsimae_tpu_torch.cli.common import (
     add_data_args,
     add_model_args,
+    join_launched_ranks,
     load_labeled_scene,
     model_config,
 )
 from hsimae_tpu_torch.config import EvalConfig, FinetuneConfig, ProtocolConfig
 from hsimae_tpu_torch.data.sampling import dual_scene_split
+from hsimae_tpu_torch.parallel.mesh import is_main_process, shutdown_distributed
 from hsimae_tpu_torch.train.evaluate import evaluate_scene
 from hsimae_tpu_torch.train.finetune import dual_branch_finetune
 from hsimae_tpu_torch.train.protocol import run_protocol
@@ -77,7 +84,17 @@ def main(argv=None):
     """Returns ``(FinetuneResult, SceneEvalResult or None)``, or the
     ``ProtocolResult`` under ``--protocol``."""
     args = build_parser().parse_args(argv)
+    joined = join_launched_ranks(args)
+    try:
+        return _run(args)
+    finally:
+        if joined:
+            shutdown_distributed()
+
+
+def _run(args):
     seed_everything(args.seed)
+    main_rank = is_main_process()
     scene, gt = load_labeled_scene(args)
     mcfg = model_config(args)
     ft = FinetuneConfig(
@@ -93,14 +110,16 @@ def main(argv=None):
                                test_seeds=args.test_seeds)
         res = run_protocol(scene, gt, mcfg, ft, proto, EvalConfig(),
                            samples_per_class=args.samples_per_class, pretrained=pretrained,
-                           gwpca=args.gwpca, resume_dir=args.workdir, device=args.device)
-        print(json.dumps({
-            "best_lr": res.best_lr,
-            "oa": f"{100 * res.oa_mean:.2f}±{100 * res.oa_std:.2f}",
-            "aa": f"{100 * res.aa_mean:.2f}±{100 * res.aa_std:.2f}",
-            "kappa": f"{100 * res.kappa_mean:.2f}±{100 * res.kappa_std:.2f}",
-            "per_class": [round(100 * float(x), 2) for x in res.per_class_mean],
-        }))
+                           gwpca=args.gwpca, resume_dir=args.workdir, device=args.device,
+                           verbose=main_rank)
+        if main_rank:
+            print(json.dumps({
+                "best_lr": res.best_lr,
+                "oa": f"{100 * res.oa_mean:.2f}±{100 * res.oa_std:.2f}",
+                "aa": f"{100 * res.aa_mean:.2f}±{100 * res.aa_std:.2f}",
+                "kappa": f"{100 * res.kappa_mean:.2f}±{100 * res.kappa_std:.2f}",
+                "per_class": [round(100 * float(x), 2) for x in res.per_class_mean],
+            }))
         return res
 
     split = dual_scene_split(scene, gt, patch_size=mcfg.img_size, num=args.samples_per_class,
@@ -108,16 +127,19 @@ def main(argv=None):
                              rng=np.random.default_rng(args.seed))
     res = dual_branch_finetune(split, mcfg, ft, pretrained=pretrained, workdir=args.workdir,
                                eval_every=args.eval_every, device=args.device)
-    print(f"[finetune] val: {res.val_metrics}")
+    if main_rank:
+        print(f"[finetune] val: {res.val_metrics}")
     ev = None
     if args.eval:
         ev = evaluate_scene(split.scene, split.test_gt, res.params, res.model_cfg,
                             res.num_classes, EvalConfig(), device=args.device,
                             save_dir=args.workdir)
         m = ev.metrics
-        print(json.dumps({"test_oa": round(100 * m.oa, 2), "test_aa": round(100 * m.aa, 2),
-                          "test_kappa": round(100 * m.kappa, 2),
-                          "per_class": [round(100 * float(x), 2) for x in m.per_class]}))
+        if main_rank:
+            print(json.dumps({"test_oa": round(100 * m.oa, 2),
+                              "test_aa": round(100 * m.aa, 2),
+                              "test_kappa": round(100 * m.kappa, 2),
+                              "per_class": [round(100 * float(x), 2) for x in m.per_class]}))
     return res, ev
 
 

@@ -13,6 +13,11 @@ writes ``ckpt_{step}.pt`` on the training thread and keeps all;
 ``<step>/state.pt`` on a background thread and keeps the newest
 ``--ckpt-max-keep``. ``--profile DIR`` writes a ``torch.profiler`` trace of
 the second epoch. bf16 compute by default (``--no-bf16`` for f32).
+
+Data-parallel over N ranks (each rank trains its rows of every global
+batch of ``--batch-size``; rank 0 logs and writes the workdir):
+    python -m torch.distributed.run --nproc-per-node N \
+        -m hsimae_tpu_torch.cli.pretrain --synthetic ... --workdir runs/pt
 """
 
 from __future__ import annotations
@@ -22,11 +27,17 @@ import argparse
 import numpy as np
 import torch
 
-from hsimae_tpu_torch.cli.common import add_model_args, load_pretrain_scenes, model_config
+from hsimae_tpu_torch.cli.common import (
+    add_model_args,
+    join_launched_ranks,
+    load_pretrain_scenes,
+    model_config,
+)
 from hsimae_tpu_torch.config import PretrainConfig
 from hsimae_tpu_torch.data.gwpca import apply_gwpca
 from hsimae_tpu_torch.data.pipeline import MultiScenePatchSource
 from hsimae_tpu_torch.data.windows import build_pretrain_cut_index
+from hsimae_tpu_torch.parallel.mesh import is_main_process, shutdown_distributed
 from hsimae_tpu_torch.train.pretrain import run_pretraining
 
 
@@ -97,13 +108,20 @@ def prepare(args):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    source, index, mcfg, cfg = prepare(args)
-    print(f"[pretrain] {len(index.scene_max)} scenes, {len(index)} patches")
-    model, hist = run_pretraining(source, index.locs, mcfg, cfg, workdir=args.workdir,
-                                  resume=args.resume, device=args.device,
-                                  profile_dir=args.profile)
-    if hist["epoch_loss"]:
-        print(f"[pretrain] done; final epoch loss {hist['epoch_loss'][-1]:.4f}")
+    joined = join_launched_ranks(args)
+    try:
+        source, index, mcfg, cfg = prepare(args)
+        main_rank = is_main_process()
+        if main_rank:
+            print(f"[pretrain] {len(index.scene_max)} scenes, {len(index)} patches")
+        model, hist = run_pretraining(source, index.locs, mcfg, cfg, workdir=args.workdir,
+                                      resume=args.resume, device=args.device,
+                                      profile_dir=args.profile)
+        if hist["epoch_loss"] and main_rank:
+            print(f"[pretrain] done; final epoch loss {hist['epoch_loss'][-1]:.4f}")
+    finally:
+        if joined:
+            shutdown_distributed()
     return model, hist
 
 

@@ -2,7 +2,7 @@
 
 Port-owned copy of ``hsimae_tpu/config.py`` (``ModelConfig``, ``PRESETS``,
 ``preset``, ``PretrainConfig``, ``FinetuneConfig``, ``EvalConfig``,
-``ProtocolConfig``). Differences from the JAX package:
+``ProtocolConfig``, ``MeshConfig``). Differences from the JAX package:
 
 * ``compute_dtype`` is a ``torch.dtype``;
 * ``use_pallas`` is renamed ``use_kernel`` and defaults to True: on the
@@ -189,3 +189,12 @@ class ProtocolConfig:
     selection_seeds: int = 3
     test_seeds: int = 5
     lr_grid: Tuple[float, ...] = (5e-3, 1e-3, 5e-4, 1e-4)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Layout of the (data, model) mesh over the ranks of the process group
+    (:func:`hsimae_tpu_torch.parallel.make_mesh`)."""
+
+    data: int = -1  # -1: the ranks the model axis leaves
+    model: int = 1  # tensor-parallel axis (attention heads, SwiGLU hidden)

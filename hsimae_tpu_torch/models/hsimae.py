@@ -74,11 +74,14 @@ def unpatchify(x: torch.Tensor, p: int, u: int, grid: int, t: int) -> torch.Tens
 
 
 def mae_loss(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor,
-             norm_pix: bool = True, sample_weight: Optional[torch.Tensor] = None):
+             norm_pix: bool = True, sample_weight: Optional[torch.Tensor] = None,
+             denom: Optional[torch.Tensor] = None):
     """Masked-token MSE in float32 -> (loss, mean, std). With ``norm_pix``
     each target token is standardised by its own mean and unbiased variance
     (``sqrt(var + 1e-6)``). The token losses are weighted by ``mask`` (times
-    ``sample_weight`` per sample) over ``max(sum of weights, 1)``."""
+    ``sample_weight`` per sample) over ``max(sum of weights, 1)``, or over
+    ``max(denom, 1)`` when given: a data-parallel rank divides its share by
+    the global batch's sum of weights."""
     pred, target = pred.float(), target.float()
     if norm_pix:
         mean = target.mean(dim=-1, keepdim=True)
@@ -90,7 +93,8 @@ def mae_loss(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor,
         std = torch.ones_like(target[..., :1])
     tok = ((pred - target) ** 2).mean(dim=-1)  # [N, S]
     w = mask if sample_weight is None else mask * sample_weight[:, None]
-    return (tok * w).sum() / w.sum().clamp(min=1.0), mean, std
+    total = w.sum() if denom is None else denom
+    return (tok * w).sum() / total.clamp(min=1.0), mean, std
 
 
 class HSIMAE(nn.Module):
@@ -342,14 +346,17 @@ class HSIMAE(nn.Module):
     def forward_pretrain(self, imgs: torch.Tensor, len_t: int, len_l: int,
                          sample_weight: Optional[torch.Tensor] = None,
                          grid: Optional[GridMask] = None, drop_keep: Optional[DropKeep] = None,
-                         generator: Optional[torch.Generator] = None):
+                         generator: Optional[torch.Generator] = None,
+                         loss_denom: Optional[torch.Tensor] = None):
         """(loss, pred, mask, (mean, std)) of the masked autoencoder; the
-        un-normalised image is :func:`reconstruct`'s."""
+        un-normalised image is :func:`reconstruct`'s. ``loss_denom``: the
+        loss's sum of weights, when not this batch's (:func:`mae_loss`)."""
         c = self.cfg
         latent, grid = self.encode_masked(imgs, len_t, len_l, grid, drop_keep, generator)
         pred = self.decode(latent, grid.ids_keep)
         target = patchify(imgs, c.patch_size, c.b_patch_size)
-        loss, mean, std = mae_loss(pred, target, grid.mask, c.norm_pix_loss, sample_weight)
+        loss, mean, std = mae_loss(pred, target, grid.mask, c.norm_pix_loss, sample_weight,
+                                   loss_denom)
         return loss, pred, grid.mask, (mean, std)
 
     def forward_dual(self, imgs: torch.Tensor, imgs_u: torch.Tensor, len_t: int, len_l: int,
@@ -357,7 +364,8 @@ class HSIMAE(nn.Module):
                      grid: Optional[GridMask] = None,
                      drop_keep_cls: Optional[DropKeep] = None,
                      drop_keep_rec: Optional[DropKeep] = None,
-                     generator: Optional[torch.Generator] = None):
+                     generator: Optional[torch.Generator] = None,
+                     loss_denom: Optional[torch.Tensor] = None):
         """(loss_rec, logits) of dual-branch fine-tuning: the unmasked
         classification of the labeled batch ``imgs [n, ...]``, then the MAE
         loss over labeled and unlabeled, ``cat(imgs, imgs_u)`` of ``n + n_u``
@@ -366,7 +374,8 @@ class HSIMAE(nn.Module):
         ``n + n_u``) and, in training, the drop-path masks of the two encodes
         (``drop_keep_cls`` for the classification, ``drop_keep_rec`` for the
         masked encode) are drawn from ``generator`` when not given, in call
-        order: the classification's masks, the grid, the masked encode's."""
+        order: the classification's masks, the grid, the masked encode's.
+        ``loss_denom`` as :meth:`forward_pretrain` takes it."""
         c = self.cfg
         logits = self.classify(imgs, drop_keep_cls, generator)
         imgs_all = torch.cat([imgs, imgs_u], dim=0)
@@ -376,7 +385,7 @@ class HSIMAE(nn.Module):
         w = None
         if sample_weight is not None:
             w = torch.cat([sample_weight, sample_weight.new_ones(imgs_u.shape[0])])
-        loss_rec = mae_loss(pred, target, grid.mask, c.norm_pix_loss, w)[0]
+        loss_rec = mae_loss(pred, target, grid.mask, c.norm_pix_loss, w, loss_denom)[0]
         return loss_rec, logits
 
     def forward(self, imgs: torch.Tensor) -> torch.Tensor:

@@ -101,23 +101,25 @@ class Attention(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_heads = num_heads
+        self.head_dim = dim // num_heads
         self.q = Linear(dim, dim, qkv_bias, dtype)
         self.k = Linear(dim, dim, qkv_bias, dtype)
         self.v = Linear(dim, dim, qkv_bias, dtype)
         self.proj = Linear(dim, dim, True, dtype)
 
     def forward(self, x: torch.Tensor, attn_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-        n, s, c = x.shape
-        h = self.num_heads
-        hd = c // h
-        q = self.q(x).reshape(n, s, h, hd)
-        k = self.k(x).reshape(n, s, h, hd)
-        v = self.v(x).reshape(n, s, h, hd)
+        n, s = x.shape[:2]
+        q, k, v = self.q(x), self.k(x), self.v(x)
+        # the heads this rank holds: all of them, or num_heads / model when
+        # q, k and v are column-split by tensor parallelism
+        hd = self.head_dim
+        h = q.shape[-1] // hd
+        q, k, v = (t.reshape(n, s, h, hd) for t in (q, k, v))
         attn = torch.einsum("nqhd,nkhd->nhqk", q, k) * (hd**-0.5)
         if attn_bias is not None:
             attn = attn + attn_bias
         attn = torch.softmax(attn.float(), dim=-1).to(q.dtype)
-        out = torch.einsum("nhqk,nkhd->nqhd", attn, v).reshape(n, s, c)
+        out = torch.einsum("nhqk,nkhd->nqhd", attn, v).reshape(n, s, h * hd)
         return self.proj(out)
 
 

@@ -131,10 +131,24 @@ def params_from_state(state: dict, prefix: str = "") -> BlockParams:
     )
 
 
+def launch_counts() -> dict:
+    """Each kernel's launches in this process so far: name -> count."""
+    return {"fused_block_tf32x3": TF32X3_LAUNCHES, "fused_block_tf32x3_d256": TF32X3_D256_LAUNCHES,
+            "fused_block_wgmma": WGMMA_LAUNCHES}
+
+
 def params_from_block(block) -> BlockParams:
     """A :class:`hsimae_tpu_torch.models.layers.Block`'s weights in matmul
-    layout (:func:`params_from_state` of its state dict)."""
-    return params_from_state(block.state_dict())
+    layout (:func:`params_from_state` of its state dict). A block whose
+    weights are tensor-parallel shards (``DTensor``) is refused: the kernel
+    takes a whole block, and tensor parallelism is a training path."""
+    state = block.state_dict()
+    sharded = [k for k, t in state.items() if hasattr(t, "device_mesh")]
+    if sharded:
+        raise ValueError(f"the fused-block kernel takes whole blocks; {sharded[0]} is a "
+                         "tensor-parallel shard (tensor parallelism serves training only: "
+                         "run the model in train mode, or with use_kernel=False)")
+    return params_from_state(state)
 
 
 class BlockPack(NamedTuple):

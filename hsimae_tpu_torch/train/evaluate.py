@@ -16,9 +16,13 @@ Counterpart of ``classify_scene`` / ``evaluate_scene`` in
 
 * :func:`classify_scene_artifact` / :func:`evaluate_scene_artifact` do the
   same through a loaded serving artifact
-  (:class:`hsimae_tpu_torch.serving.ExportedClassifier`): no model source.
-
-Data-parallel meshes are not ported yet.
+  (:class:`hsimae_tpu_torch.serving.ExportedClassifier`): no model source;
+* data parallelism: under a process group (``torch.distributed.run``, or with
+  a ``mesh``), the batch is padded to a multiple of the data axis and each
+  rank classifies its contiguous share of every batch, on the fused-block
+  kernel, from its own resident copy of the scene. Its ``[B / P]`` int32
+  labels stay on its device until one all-gather at the end of the scene;
+  every rank returns the whole map, and rank 0 alone writes the PNGs.
 """
 
 from __future__ import annotations
@@ -35,6 +39,14 @@ from hsimae_tpu_torch.checkpoints.io import partial_restore
 from hsimae_tpu_torch.config import EvalConfig, ModelConfig
 from hsimae_tpu_torch.data.pipeline import ScenePatchSource, batch_indices
 from hsimae_tpu_torch.models.hsimae import CLS_HEAD_NAME, HSIMAE, build_hsi_vit
+from hsimae_tpu_torch.parallel.mesh import (
+    all_gather_rows,
+    data_size,
+    default_mesh,
+    is_main_process,
+    mesh_slice,
+    pad_to_multiple,
+)
 from hsimae_tpu_torch.utils.colormap import save_colormap
 from hsimae_tpu_torch.utils.metrics import Metrics, classification_metrics
 
@@ -43,6 +55,9 @@ from hsimae_tpu_torch.utils.metrics import Metrics, classification_metrics
 class SceneEvalResult:
     pred_map: np.ndarray  # [h, w] predicted labels (1-based; never 0)
     metrics: Metrics
+    # with the ranks the evaluate CLI starts itself (--dp): each rank's
+    # kernel launches, by kernel name, in rank order
+    launches_by_rank: Optional[list] = None
 
 
 def _load_weights(model: torch.nn.Module, state_dict: Dict[str, torch.Tensor]) -> None:
@@ -79,19 +94,34 @@ def build_classifier(
 
 
 @torch.inference_mode()
-def predict_scene(model: HSIMAE, scene: np.ndarray, cfg: EvalConfig = EvalConfig()) -> np.ndarray:
+def predict_scene(model: HSIMAE, scene: np.ndarray, cfg: EvalConfig = EvalConfig(),
+                  mesh=None) -> np.ndarray:
     """Predict a label for every pixel with a built model -> [h, w] int32
-    (1-based). The scene goes to the model's device."""
+    (1-based). The scene goes to the model's device. With a ``mesh``, this
+    rank classifies its share of every batch and the map is gathered from
+    every rank (module docstring)."""
     device = model.pos_embed.device
     source = ScenePatchSource(scene, model.cfg.img_size, device=device)
     h, w = scene.shape[:2]
     n = h * w
-    bs = min(cfg.batch_size, n)
+    bs = pad_to_multiple(min(cfg.batch_size, n), data_size(mesh))
+    own = mesh_slice(bs, mesh)
     out = np.zeros(n, np.int32)
-    for chunk, valid in batch_indices(n, bs, shuffle=False):
-        logits = model.classify(source.gather_pixels(chunk))
-        pred = (torch.argmax(logits[:, 1:], dim=-1).to(torch.int32) + 1).cpu().numpy()
-        out[chunk[valid]] = pred[valid]
+    batches = list(batch_indices(n, bs, shuffle=False))
+    preds = []
+    for chunk, valid in batches:
+        logits = model.classify(source.gather_pixels(chunk[own]))
+        pred = torch.argmax(logits[:, 1:], dim=-1).to(torch.int32) + 1
+        if mesh is None:
+            out[chunk[valid]] = pred.cpu().numpy()[valid]
+        else:
+            preds.append(pred)
+    if mesh is not None:
+        # [P, batches * B/P] -> [batches, P, B/P]: batch-major, then rank
+        shares = all_gather_rows(torch.cat(preds), mesh).reshape(data_size(mesh), len(batches), -1)
+        labels = shares.transpose(0, 1).reshape(len(batches), bs).cpu().numpy()
+        for (chunk, valid), pred in zip(batches, labels):
+            out[chunk[valid]] = pred[valid]
     return out.reshape(h, w)
 
 
@@ -103,11 +133,13 @@ def classify_scene(
     cfg: EvalConfig = EvalConfig(),
     device: str | torch.device = "cuda",
     seed: int = 0,
+    mesh=None,
 ) -> np.ndarray:
     """Predict a label for every pixel -> [h, w] int32 (1-based):
-    :func:`build_classifier` then :func:`predict_scene`."""
+    :func:`build_classifier` then :func:`predict_scene`. ``mesh`` defaults
+    to :func:`default_mesh`: data-parallel under a process group."""
     model = build_classifier(params, model_cfg, num_classes, device, seed)
-    return predict_scene(model, scene, cfg)
+    return predict_scene(model, scene, cfg, mesh if mesh is not None else default_mesh())
 
 
 @torch.inference_mode()
@@ -132,7 +164,7 @@ def classify_scene_artifact(scene: np.ndarray, classifier, cfg: EvalConfig = Eva
 def _finish_eval(pred_map: np.ndarray, test_gt: np.ndarray, cfg: EvalConfig,
                  save_dir: Optional[str], name: str) -> SceneEvalResult:
     m = classification_metrics(test_gt, pred_map)
-    if save_dir and cfg.save_colormaps:
+    if save_dir and cfg.save_colormaps and is_main_process():
         os.makedirs(save_dir, exist_ok=True)
         save_colormap(os.path.join(save_dir, f"{name}_pred.png"), pred_map)
         masked = np.where(test_gt != 0, pred_map, 0)
@@ -151,8 +183,9 @@ def evaluate_scene(
     seed: int = 0,
     save_dir: Optional[str] = None,
     name: str = "scene",
+    mesh=None,
 ) -> SceneEvalResult:
-    pred_map = classify_scene(scene, params, model_cfg, num_classes, cfg, device, seed)
+    pred_map = classify_scene(scene, params, model_cfg, num_classes, cfg, device, seed, mesh)
     return _finish_eval(pred_map, test_gt, cfg, save_dir, name)
 
 

@@ -25,6 +25,8 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
 
+from hsimae_tpu_torch.parallel.mesh import local_tensor
+
 
 def timm_cosine_schedule(base_lr: float, t_initial: int, warmup_t: int = 0,
                          lr_min: float = 0.0,
@@ -54,7 +56,9 @@ class AdamW:
     holds ``params``, ``names``, ``lr`` (:func:`set_lr` sets it to the rate
     times the group's ``lr_scale`` before each :meth:`step`) and
     ``weight_decay``. The second moment is float32; the first is stored in
-    ``mu_dtype`` and updated in float32."""
+    ``mu_dtype`` and updated in float32. A tensor-parallel parameter (a
+    ``DTensor``) is updated on the shard this rank holds, and its moments
+    are that shard's: the update is elementwise."""
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]],
                  weight_decay: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
@@ -76,9 +80,9 @@ class AdamW:
         self.b1, self.b2, self.eps = b1, b2, eps
         self.mu_dtype = mu_dtype or torch.float32
         self.count = 0  # updates applied
-        self.mu = [[torch.zeros_like(p, dtype=self.mu_dtype) for p in g["params"]]
+        self.mu = [[torch.zeros_like(local_tensor(p), dtype=self.mu_dtype) for p in g["params"]]
                    for g in self.param_groups]
-        self.nu = [[torch.zeros_like(p, dtype=torch.float32) for p in g["params"]]
+        self.nu = [[torch.zeros_like(local_tensor(p), dtype=torch.float32) for p in g["params"]]
                    for g in self.param_groups]
 
     def zero_grad(self) -> None:
@@ -96,8 +100,8 @@ class AdamW:
             live = [i for i, p in enumerate(g["params"]) if p.grad is not None]
             if not live:
                 continue
-            params = [g["params"][i] for i in live]
-            grads = [p.grad.float() for p in params]
+            params = [local_tensor(g["params"][i]) for i in live]
+            grads = [local_tensor(g["params"][i].grad).float() for i in live]
             nu = [nus[i] for i in live]
             stored_mu = [mus[i] for i in live]
             mu = stored_mu if self.mu_dtype == torch.float32 else [m.float() for m in stored_mu]

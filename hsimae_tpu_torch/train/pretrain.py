@@ -18,7 +18,16 @@ Counterpart of ``make_pretrain_step`` and ``run_pretraining`` in
   (:class:`hsimae_tpu_torch.checkpoints.async_io.AsyncCheckpointer`); a
   resume that finds only the other backend's checkpoints raises;
 * with ``profile_dir``, the second epoch of the call is traced with
-  ``torch.profiler`` (the first holds the warm-up).
+  ``torch.profiler`` (the first holds the warm-up);
+* data parallelism: under a process group (``torch.distributed.run``, or with
+  a ``mesh``), the global batch is padded to a multiple of the data axis
+  and every rank gathers and trains its contiguous rows of it. Every rank
+  draws the global batch's flips, kept grid and drop-path masks from the
+  step's generator and keeps its rows, so the draws are the single
+  process's; the loss divides by the global batch's sum of weights, the
+  gradients (and the reported loss) are summed over the data axis in one
+  all-reduce before the update. Rank 0 alone logs, profiles and writes
+  files; every rank resumes from the same checkpoint.
 
 The step runs the Block modules under autograd: the fused-block kernel has
 no backward and serves the inference path only.
@@ -50,6 +59,16 @@ from hsimae_tpu_torch.data.pipeline import (
 )
 from hsimae_tpu_torch.models.hsimae import HSIMAE, DropKeep, build_hsimae
 from hsimae_tpu_torch.models.masking import GridMask, group_by_shape, spatial_spectral_mask
+from hsimae_tpu_torch.parallel.mesh import (
+    all_reduce_grads,
+    barrier,
+    data_size,
+    default_mesh,
+    is_main_process,
+    mesh_slice,
+    pad_to_multiple,
+    replicate,
+)
 from hsimae_tpu_torch.train.optim import AdamW, pretrain_optimizer, set_lr
 from hsimae_tpu_torch.utils.logger import MetricLogger
 
@@ -81,30 +100,67 @@ def draw_pretrain(model: HSIMAE, n: int, len_t: int, len_l: int,
     return PretrainDraws(flips, grid, drop_keep)
 
 
+def take_rows(t: torch.Tensor, n: int, rows) -> torch.Tensor:
+    """The rows of samples ``rows`` (a slice or an index tensor) of the 1-D
+    ``t``, which holds ``n`` samples of equal row counts: a drop-path mask
+    of ``n * len_t`` rows keeps ``len_t`` rows a sample."""
+    return t.reshape(n, -1)[rows].reshape(-1)
+
+
+def take_drop_keep(keep: Optional[DropKeep], n: int, rows) -> Optional[DropKeep]:
+    """The drop-path keep masks of samples ``rows`` of ``n``."""
+    if keep is None:
+        return None
+    return {name: [None if k is None else tuple(take_rows(t, n, rows) for t in k)
+                   for k in masks] for name, masks in keep.items()}
+
+
+def local_pretrain_draws(draws: PretrainDraws, n: int, rows) -> PretrainDraws:
+    """A global batch's draws cut to the samples ``rows`` of ``n``."""
+    flips = None if draws.flips is None else tuple(f[rows] for f in draws.flips)
+    return PretrainDraws(flips, GridMask(*(t[rows] for t in draws.grid)),
+                         take_drop_keep(draws.drop_keep, n, rows))
+
+
 def make_pretrain_step(model: HSIMAE, optimizer: AdamW, sched: Callable[[int], float],
-                       flip_augment: bool = True, seed: int = 0):
+                       flip_augment: bool = True, seed: int = 0, mesh=None):
     """Returns ``step(imgs, len_t, len_l, w=None, draws=None) -> loss``.
 
     ``w`` is an optional per-sample weight (0 for the padded tail).
     ``draws`` (:class:`PretrainDraws`) injects the step's draws; without it
     they come from :func:`step_generator` at ``(seed, optimizer.count)``,
     flips only with ``flip_augment``. Update ``k`` runs at ``sched(k)``,
-    ``k`` the updates already applied. The loss stays on the device."""
+    ``k`` the updates already applied. The loss stays on the device.
+
+    With a ``mesh`` of data axis ``P``, ``imgs`` holds this rank's rows of
+    a global batch of ``P * len(imgs)`` (:func:`mesh_slice`), while ``w``
+    and ``draws`` are the global batch's; the returned loss is the global
+    batch's, on every rank."""
 
     def step(imgs: torch.Tensor, len_t: int, len_l: int, w: Optional[torch.Tensor] = None,
              draws: Optional[PretrainDraws] = None) -> torch.Tensor:
         k = optimizer.count
+        n = imgs.shape[0] * data_size(mesh)
         if draws is None:
             g = step_generator(seed, k, imgs.device)
-            draws = draw_pretrain(model, imgs.shape[0], len_t, len_l, g, imgs.device,
-                                  flip_augment)
+            draws = draw_pretrain(model, n, len_t, len_l, g, imgs.device, flip_augment)
+        denom = None
+        if mesh is not None:
+            # the global batch's sum of weights, then this rank's rows
+            denom = (draws.grid.mask if w is None else draws.grid.mask * w[:, None]).sum()
+            rows = mesh_slice(n, mesh)
+            draws = local_pretrain_draws(draws, n, rows)
+            w = None if w is None else w[rows]
         if draws.flips is not None:
             imgs = augment_flips(imgs, flips=draws.flips)
         if not model.training:
             model.train()
-        loss = model.forward_pretrain(imgs, len_t, len_l, w, draws.grid, draws.drop_keep)[0]
+        loss = model.forward_pretrain(imgs, len_t, len_l, w, draws.grid, draws.drop_keep,
+                                      loss_denom=denom)[0]
         optimizer.zero_grad()
         loss.backward()
+        if mesh is not None:
+            loss, = all_reduce_grads(model, mesh, loss)
         set_lr(optimizer, sched(k))
         optimizer.step()
         return loss.detach()
@@ -131,6 +187,7 @@ def run_pretraining(
     stop_after_epochs: Optional[int] = None,
     device: str | torch.device = "cuda",
     profile_dir: Optional[str] = None,
+    mesh=None,
 ):
     """Epoch loop over the cut index ``locs`` -> (model, history) with
     ``history = {"epoch_loss": [...], "patches_per_sec": [...],
@@ -142,13 +199,19 @@ def run_pretraining(
     ``stop_after_epochs`` ends the call early (a simulated preemption); the
     schedule still spans ``cfg.epochs``. ``profile_dir`` receives
     ``epoch_{n}.trace.json``, a ``torch.profiler`` trace of the call's
-    second epoch ``n``."""
+    second epoch ``n``. ``mesh`` (default: :func:`default_mesh`, the data
+    axis over every rank of the process group, if one is up) makes the
+    loop data-parallel (module docstring); ``history`` is then the global
+    batch's on every rank."""
     if cfg.checkpoint_backend not in ("msgpack", "orbax"):
         raise ValueError(f"unknown checkpoint_backend {cfg.checkpoint_backend!r} "
                          "(msgpack or orbax)")
     model = build_hsimae(model_cfg, seed=cfg.seed, device=device)
+    if mesh is None:
+        mesh = default_mesh()
+    main = is_main_process()
     n = len(locs)
-    bs = min(cfg.batch_size, n)
+    bs = pad_to_multiple(min(cfg.batch_size, n), data_size(mesh))
     steps_per_epoch = int(np.ceil(n / bs))
     total_steps = steps_per_epoch * cfg.epochs
     optimizer, sched = pretrain_optimizer(
@@ -157,6 +220,7 @@ def run_pretraining(
         mu_dtype=getattr(torch, cfg.adam_mu_dtype) if cfg.adam_mu_dtype else None)
 
     ckptr = None
+    # every rank reads the same checkpoint; rank 0 alone writes
     if workdir and cfg.checkpoint_backend == "orbax":
         ckptr = AsyncCheckpointer(workdir, max_to_keep=cfg.ckpt_max_to_keep)
     start_epoch = 0
@@ -173,7 +237,8 @@ def run_pretraining(
             other = f"background-writer steps {other}" if other else None
         if step is not None:
             start_epoch = step // steps_per_epoch
-            print(f"[pretrain] resumed from {where} at step {step}, epoch {start_epoch}")
+            if main:
+                print(f"[pretrain] resumed from {where} at step {step}, epoch {start_epoch}")
         elif other:
             # the backend was flipped between runs: starting at epoch 0 would
             # overwrite the run
@@ -185,8 +250,11 @@ def run_pretraining(
                 f"exist there ({other}); re-run with the backend the workdir was written "
                 "with, or pass resume=False / a fresh workdir to deliberately start over")
 
-    logger = logger or MetricLogger(workdir)
-    step_fn = make_pretrain_step(model, optimizer, sched, seed=cfg.seed)
+    if mesh is not None:
+        replicate(model, mesh, optimizer)
+    logger = logger or (MetricLogger(workdir) if main else MetricLogger(echo=False))
+    step_fn = make_pretrain_step(model, optimizer, sched, seed=cfg.seed, mesh=mesh)
+    own = mesh_slice(bs, mesh)  # this rank's rows of every batch
     t_size, l_size = model_cfg.t_size, model_cfg.l_size
     epoch_losses, rates, ckpt_seconds = [], [], []
     end_epoch = cfg.epochs
@@ -200,7 +268,7 @@ def run_pretraining(
     # the background writer is waited for and closed on every exit path
     try:
         for epoch in range(start_epoch, end_epoch):
-            if profile_dir and epoch == start_epoch + 1:
+            if profile_dir and main and epoch == start_epoch + 1:
                 prof = _profiler(profile_dir, device)
                 prof.start()
             # per-epoch reseeded shuffle and grid shapes
@@ -217,7 +285,7 @@ def run_pretraining(
                     # the wrapped duplicates of the padded tail weigh 0
                     w = None if valid.all() else torch.as_tensor(valid, dtype=torch.float32,
                                                                  device=device)
-                    loss = step_fn(source.gather(locs_dev[rows[i]]), len_t, len_l, w)
+                    loss = step_fn(source.gather(locs_dev[rows[i][own]]), len_t, len_l, w)
                     ep_steps += 1
                     step_losses.append(loss)
                     if ep_steps % cfg.log_every == 0:
@@ -234,22 +302,26 @@ def run_pretraining(
             epoch_losses.append(mean_loss)
             rates.append(pps)
             logger.log(epoch=epoch, epoch_loss=mean_loss, patches_per_sec=pps)
-            print(f"[pretrain] epoch {epoch}: loss {mean_loss:.4f}  {pps:,.0f} patches/s")
+            if main:
+                print(f"[pretrain] epoch {epoch}: loss {mean_loss:.4f}  {pps:,.0f} patches/s")
             if workdir and cfg.checkpoint_every_steps and (
                     (epoch + 1) * steps_per_epoch % cfg.checkpoint_every_steps < steps_per_epoch):
-                t0 = time.perf_counter()
-                if ckptr is not None:
-                    ckptr.save(optimizer.count, model, optimizer)  # returns at once
-                else:
-                    save_checkpoint(workdir, optimizer.count, model, optimizer)
-                ckpt_seconds.append(time.perf_counter() - t0)
+                if main:
+                    t0 = time.perf_counter()
+                    if ckptr is not None:
+                        ckptr.save(optimizer.count, model, optimizer)  # returns at once
+                    else:
+                        save_checkpoint(workdir, optimizer.count, model, optimizer)
+                    ckpt_seconds.append(time.perf_counter() - t0)
+                barrier()
     finally:
         if prof is not None:
             prof.stop()
         if ckptr is not None:
             ckptr.close()  # every enqueued save on disk before returning
-    if workdir:
+    if workdir and main:
         save_params(f"{workdir}/params_final.pt", model)
         np.save(f"{workdir}/train_log.npy", np.array([epoch_losses, []], dtype=object))
+    barrier()
     return model, {"epoch_loss": epoch_losses, "patches_per_sec": rates,
                    "checkpoint_seconds": ckpt_seconds}

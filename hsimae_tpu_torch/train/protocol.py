@@ -18,6 +18,11 @@ One ``pretrained`` dict feeds every run: each run copies it into a model of
 its own (``partial_restore``) and never writes to it. Each run's model,
 optimizer and kernel weights are dropped when the run returns, so the card
 holds one run at a time.
+
+Under a process group (``torch.distributed.run``), every fine-tune and scene
+evaluation runs data-parallel by itself (their default mesh), so each rank
+runs the same protocol on its share of every batch; rank 0 alone appends
+the records.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import torch
 
 from hsimae_tpu_torch.config import EvalConfig, FinetuneConfig, ModelConfig, ProtocolConfig
 from hsimae_tpu_torch.data.sampling import dual_scene_split
+from hsimae_tpu_torch.parallel.mesh import is_main_process
 from hsimae_tpu_torch.train.evaluate import evaluate_scene
 from hsimae_tpu_torch.train.finetune import dual_branch_finetune
 from hsimae_tpu_torch.utils.metrics import Metrics
@@ -103,8 +109,9 @@ def _load_completed(resume_dir: Optional[str]) -> Dict[tuple, dict]:
 
 def _append_run(resume_dir: Optional[str], rec: dict) -> None:
     """Append ``rec`` as one line, on a line of its own even after a kill
-    mid-append left the last line unterminated."""
-    if not resume_dir:
+    mid-append left the last line unterminated. Under data parallelism rank
+    0 alone writes."""
+    if not resume_dir or not is_main_process():
         return
     os.makedirs(resume_dir, exist_ok=True)
     path = _runs_path(resume_dir)

@@ -71,7 +71,7 @@ def test_eval_config_default():
 DROPPED_FIELDS = {"PretrainConfig": {"fused_steps"}}
 
 
-@pytest.mark.parametrize("name", ["EvalConfig", "ProtocolConfig", "PretrainConfig"])
+@pytest.mark.parametrize("name", ["EvalConfig", "ProtocolConfig", "PretrainConfig", "MeshConfig"])
 def test_config_field_for_field(name):
     j, t = getattr(jcfg, name)(), getattr(tcfg, name)()
     jf = {f.name for f in dataclasses.fields(j)} - DROPPED_FIELDS.get(name, set())

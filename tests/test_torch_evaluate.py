@@ -39,6 +39,18 @@ WIDE_L = dict(SMALL, embed_dim=256, num_heads=16)
 NUM_CLASSES = 5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread while this module runs: the fast tier runs six
+    pytest workers on the machine's cores, and torch's default pool (a
+    thread per core in each worker) oversubscribes them. Restored
+    afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def configs(size=SMALL, **kw):
     return jcfg.preset("HSIMAE-S", **size, **kw), tcfg.preset("HSIMAE-S", **size, **kw)
 

@@ -57,6 +57,18 @@ DROP = 0.2
 STACKS = ("blocks_1", "blocks_2", "blocks")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread while this module runs: the fast tier runs six
+    pytest workers on the machine's cores, and torch's default pool (a
+    thread per core in each worker) oversubscribes them. Restored
+    afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def configs(**kw):
     jdt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
     tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -436,7 +448,9 @@ def test_loop_feeds_the_step_what_jax_feeds_it(case, split, monkeypatch):
                     jnp.zeros((x.shape[0], NC), jnp.float32))
         return step
 
-    def port_recorder(model, optimizer, sched, lamda, flip_augment=True, seed=0):
+    def port_recorder(model, optimizer, sched, lamda, flip_augment=True, seed=0, mesh=None):
+        assert mesh is None  # one process: the loop runs without a mesh
+
         def step(x, y, w, x_u, len_t, len_l, draws=None):
             trec.append((x.numpy(), y.numpy(), w.numpy(), x_u.numpy(), (len_t, len_l),
                          sched(optimizer.count)))

@@ -47,6 +47,18 @@ TINY = dict(depth=2, s_depth=1, decoder_depth=1, embed_dim=32, num_heads=2, deco
 LR, WD, TOTAL = 1e-3, 0.05, 10
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread while this module runs: the fast tier runs six
+    pytest workers on the machine's cores, and torch's default pool (a
+    thread per core in each worker) oversubscribes them. Restored
+    afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def to_numpy(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
