@@ -135,11 +135,34 @@ Phases, each of a fixed size; any failure exits non-zero:
    share, 126 a rank in ``--eval``, the map against ``block_reference`` on
    the same weights on >= 99.9% of pixels. Logs in
    ``chiprun_out/smoke_dp*.log`` and ``smoke_nccl.log``;
+16. the baseline zoo (``hsimae_tpu_torch.models.baselines``, the bench
+   harness and ``cli.benchmark``; plain PyTorch ops, no kernel of ours):
+   a. each of the ten nets at its registry widths (PaviaU: 103 bands, 10
+   classes; SSFTT on 30 PCA bands at patch 13), seeded weights and
+   BatchNorm statistics, eval logits of a batch of 16 on the card against
+   the CPU (float32, 1e-4 scaled); b. one harness train step of each net
+   (batch 32, the last 3 rows padding, flips and dropout masks injected, the
+   spec's optimizer at rate 1e-3) on the card against the CPU: the loss
+   within 1e-4; every gradient tensor against float64 on the CPU, scaled by
+   its largest float64 gradient (at least 1e-3 of the net's largest), the
+   card's miss within 1e-4 or within 10 times the CPU's float32 miss, no
+   element left out; the parameters after the step against the CPU's
+   optimizer run on the card's gradients, the BatchNorm buffers against the
+   CPU's step, within 1e-4 scaled. The CPU's steps take the card's
+   max-pool routing (DCTN; rounding can flip a near-tie), each routed
+   element within 1e-4 of its float64 window's maximum; c.
+   ``hsimae_tpu_torch.cli.benchmark.main`` on the phase-4 scene (145x145x200,
+   16 classes), all ten nets, 10 samples a class, lr grid 1e-3, 1 selection
+   seed, 2 test seeds, 20 epochs: its report keys and OA; then one 10-epoch
+   ``train_baseline`` and one ``evaluate_baseline`` of each net on that
+   scene, outside the CLI: the train-step ms (epochs 1-9), the full-scene
+   pixels/s, every logit of the scene finite; 0 fused-block launches over
+   the CLI run and these;
 7. (last) a ``kernels`` JSON line, with each kernel's launches on each path
    (counts set to 0 just before the path), the card's name and power limit,
    then ``{"ok": true, "device": {...}}``.
 
-Phases run in the order 1-6, 11, 8-10, 12, 13, 14, 15, 7.
+Phases run in the order 1-6, 11, 8-10, 12, 13, 14, 15, 16, 7.
 """
 
 from __future__ import annotations
@@ -282,6 +305,20 @@ DP_FINETUNE_EPOCHS = 20  # 15f
 DP_SINGLE_RTOL = 1e-2  # 15c: epoch-1 loss against phase 9's single process, relative
 DP_EVAL_LAUNCHES = 6 * 21  # 15e/f: 6 scene batches of 4096, 2048 rows a rank, 21 a batch
 SCENE_LAUNCHES = 6 * 4 * 21  # 6 gathers of 4096, 4 calls of bucket 1024 each, 21 a call
+# phase 16: the baseline zoo at its registry widths
+ZOO_DATASET, ZOO_CLASSES = "PaviaU", 10
+ZOO_EVAL_BATCH, ZOO_STEP_BATCH, ZOO_STEP_PAD, ZOO_LR = 16, 32, 3, 1e-3
+ZOO_TOL = 1e-4  # logits, loss, parameters, buffers: |card - cpu| <= tol * max(1, |cpu|)
+# gradients, against float64 on the CPU, each tensor scaled by its largest float64 gradient
+# (at least ZOO_GRAD_FLOOR of the net's largest: a conv bias in front of a BatchNorm has true
+# gradient 0): the card within ZOO_TOL, or within ZOO_GRAD_K times the CPU's float32 miss
+ZOO_GRAD_FLOOR, ZOO_GRAD_K = 1e-3, 10.0
+ZOO_ARGV = ["--synthetic", "--synthetic-size", "145", "--synthetic-bands", "200",
+            "--synthetic-classes", "16", "--samples-per-class", "10", "--lr-grid", "1e-3",
+            "--selection-seeds", "1", "--test-seeds", "2", "--epochs", "20",
+            "--scene-seed", "0", "--device", "cuda"]  # phase 4's scene
+ZOO_REPORT_KEYS = ["best_lr", "oa", "aa", "kappa", "per_seed_oa"]
+ZOO_TIMED_EPOCHS = 10  # 16c's timed run of each net: 2 steps an epoch, epoch 0 not timed
 # the serving child: loads an artifact where hsimae_tpu_torch.models cannot be imported,
 # answers each request size, and prints one JSON line (launches, pack builds, timings)
 SERVE_CHILD = """
@@ -1859,6 +1896,202 @@ def data_parallel(smi_line: str, fb, hsimae_model, runs: Path, log_dir: Path, sp
     return launches
 
 
+# ----------------------------- phase 16: the baseline zoo -----------------------------
+
+
+def zoo_net(name: str, seed: int):
+    """(spec, bands, net on the CPU): the registry's net at PaviaU's widths,
+    initialised as flax does from ``seed``, its BatchNorm statistics drawn."""
+    import torch
+    from hsimae_tpu_torch.bench import harness, registry
+
+    spec = registry.get_baseline_spec(name, ZOO_DATASET)
+    bands = spec.pca_nc or registry.DATASETS[ZOO_DATASET]["bands"]
+    model = harness.build_model(spec, bands, ZOO_CLASSES, seed=seed, device="cpu")
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for buf_name, buf in model.named_buffers():
+            buf.copy_(torch.rand(buf.shape, generator=g) + 0.5 if buf_name.endswith("var")
+                      else torch.randn(buf.shape, generator=g) * 0.1)
+    return spec, bands, model
+
+
+def scaled_err_of(got, ref) -> float:
+    return ((got.double() - ref.double()).abs() / ref.double().abs().clamp(min=1.0)).max().item()
+
+
+def worst_of(errs: dict):
+    """(key, error) of the largest error, a NaN counted as infinite."""
+    key = max(errs, key=lambda k: math.inf if math.isnan(errs[k]) else errs[k])
+    return key, math.inf if math.isnan(errs[key]) else errs[key]
+
+
+def zoo_step(spec, model, x, y, w, mask_seed: int, dtype=None):
+    """One harness train step (``make_train_step`` with the spec's
+    optimizer) on ``model``'s device, dropout masks drawn on the CPU from
+    ``mask_seed``; with ``dtype``, the forward and backward alone in that
+    dtype. Returns (loss, gradients on the CPU)."""
+    import torch
+    from hsimae_tpu_torch.bench import harness
+    from hsimae_tpu_torch.models.baselines.common import set_dropout_masks
+
+    dev = next(model.parameters()).device
+    g = torch.Generator().manual_seed(mask_seed)
+    set_dropout_masks(model, lambda shape, keep, d: (torch.rand(tuple(shape), generator=g)
+                                                     < keep).to(d))
+    if dtype is not None:  # the float64 reference gradient: forward and backward only
+        model.train()
+        loss = harness.cross_entropy_ignore0(model(x.to(dev, dtype)), y.to(dev), w.to(dev, dtype))
+        loss.backward()
+    else:
+        opt = harness.make_optimizer(spec, model, ZOO_LR)
+        loss = harness.make_train_step(model, opt)(x.to(dev), y.to(dev), w.to(dev))
+    return loss.item(), {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+
+
+def baseline_zoo(smi_line: str, fb) -> dict:
+    """Phase 16: the ten zoo nets on the card against the CPU (eval logits,
+    one harness train step), then ``cli.benchmark`` over all ten. Returns
+    the benchmark path's launches of each kernel (0 expected)."""
+    import copy
+    import dataclasses
+
+    import torch
+    from hsimae_tpu_torch.bench import harness, registry
+    from hsimae_tpu_torch.cli import benchmark as bench_cli
+    from hsimae_tpu_torch.data.pipeline import ScenePatchSource, augment_flips, batch_indices
+    from hsimae_tpu_torch.data.synthetic import make_synthetic_scene
+    from hsimae_tpu_torch.models.baselines.common import MaxPool2d
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(16)
+    for name in registry.ALL_BASELINES:
+        t0 = time.perf_counter()
+        spec, bands, model = zoo_net(name, seed=16)
+        ps = spec.patch_size
+        # ---- 16a. eval logits, card against CPU ----
+        x = torch.rand(ZOO_EVAL_BATCH, ps, ps, bands, generator=gen)
+        with torch.no_grad():
+            ref = model.eval()(x)
+            got = copy.deepcopy(model).to(dev).eval()(x.to(dev)).cpu()
+        if not torch.isfinite(got).all():
+            fail(f"16a: {name} gave non-finite logits on the card")
+        eval_err = scaled_err_of(got, ref)
+        # ---- 16b. one harness train step, card against CPU ----
+        n = ZOO_STEP_BATCH
+        valid = torch.arange(n) < n - ZOO_STEP_PAD
+        x = augment_flips(torch.rand(n, ps, ps, bands, generator=gen),
+                          flips=(torch.rand(n, generator=gen) < 0.5,
+                                 torch.rand(n, generator=gen) < 0.5))
+        y = torch.randint(1, ZOO_CLASSES, (n,), generator=gen) * valid
+        w = valid.float()
+        before, card, ref64 = (copy.deepcopy(model), copy.deepcopy(model).to(dev),
+                               copy.deepcopy(model).double())
+        for m in card.modules():
+            if isinstance(m, MaxPool2d):
+                m.record = True
+        loss_card, g_card = zoo_step(spec, card, x, y, w, 7)
+        # the CPU's steps take the card's max-pool routing: rounding can flip a near-tie;
+        # each routed element is held to its float64 window's maximum below
+        pools = {k: m.last_route.cpu() for k, m in card.named_modules() if isinstance(m, MaxPool2d)}
+        for net in (model, ref64):
+            for k, m in net.named_modules():
+                if k in pools:
+                    m.route = pools[k]
+        _, g64 = zoo_step(spec, ref64, x, y, w, 7, torch.float64)
+        loss_cpu, g32 = zoo_step(spec, model, x, y, w, 7)
+        route_gap = max([m.route_gap for m in ref64.modules() if isinstance(m, MaxPool2d)],
+                        default=0.0)
+        # gradients: the card's float32 miss of float64 against the CPU's float32 miss
+        floor = ZOO_GRAD_FLOOR * max(g.abs().max().item() for g in g64.values())
+        grads = {}  # tensor -> (card's miss, CPU's miss, card's miss / its bound)
+        for key, ref in g64.items():
+            scale = max(ref.abs().max().item(), floor)
+            card_miss = (g_card[key].double() - ref).abs().max().item() / scale
+            cpu_miss = (g32[key].double() - ref).abs().max().item() / scale
+            grads[key] = (card_miss, cpu_miss, card_miss / max(ZOO_TOL, ZOO_GRAD_K * cpu_miss))
+        grad_worst, grad_excess = worst_of({k: v[2] for k, v in grads.items()})
+        # parameters: the card's step against the CPU's optimizer on the card's gradients,
+        # from the same weights; buffers: against the CPU's step
+        opt = harness.make_optimizer(spec, before, ZOO_LR)
+        for key, p in before.named_parameters():
+            p.grad = g_card[key]
+        opt.step()
+        cpu_state = {**model.state_dict(), **dict(before.named_parameters())}
+        worst, step_err = worst_of({key: scaled_err_of(t.cpu(), cpu_state[key].detach())
+                                    for key, t in card.state_dict().items()})
+        loss_err = abs(loss_card - loss_cpu) / max(1.0, abs(loss_cpu))
+        row = {"phase": "zoo card vs cpu", "model": name, "dataset": ZOO_DATASET, "bands": bands,
+               "patch": ps, "params": sum(p.numel() for p in model.parameters()),
+               "eval_batch": ZOO_EVAL_BATCH, "eval_max_scaled_err": eval_err,
+               "step_batch": n, "optimizer": spec.optimizer, "loss_cpu": loss_cpu,
+               "loss_card": loss_card, "loss_err": loss_err,
+               "grad_card_miss_max": worst_of({k: v[0] for k, v in grads.items()}),
+               "grad_cpu_miss_max": worst_of({k: v[1] for k, v in grads.items()}),
+               "grad_worst_tensor": grad_worst, "grad_worst_card_cpu_miss": grads[grad_worst][:2],
+               "grad_excess": grad_excess, "step_max_scaled_err": step_err,
+               "step_worst_tensor": worst, "max_pool_route_gap": route_gap, "tol": ZOO_TOL,
+               "seconds": time.perf_counter() - t0, "card": smi_line}
+        print(json.dumps(row), flush=True)
+        if not (eval_err <= ZOO_TOL and loss_err <= ZOO_TOL and grad_excess <= 1.0
+                and step_err <= ZOO_TOL and route_gap <= ZOO_TOL):
+            fail(f"16a/b: {name} on the card disagrees with the CPU: {row}")
+        del card, before, ref64
+        torch.cuda.empty_cache()
+
+    # ---- 16c. cli.benchmark over all ten nets, then one timed run of each ----
+    reset_counts(fb)
+    t0 = time.perf_counter()
+    report = bench_cli.main(ZOO_ARGV + ["--models", *registry.ALL_BASELINES])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    for name in registry.ALL_BASELINES:
+        if list(report.get(name, {})) != ZOO_REPORT_KEYS:
+            fail(f"16c: cli.benchmark's report for {name} lacks keys: {report.get(name)}")
+    # the train-step ms and the full-scene pixels/s: one train_baseline and one
+    # evaluate_baseline of each net on the CLI's scene, its convs already warm
+    args = bench_cli.build_parser().parse_args(ZOO_ARGV)
+    scene, gt = make_synthetic_scene(args.synthetic_size, args.synthetic_size,
+                                     bands=args.synthetic_bands,
+                                     n_classes=args.synthetic_classes, seed=args.scene_seed)
+    n_classes = int(gt.max()) + 1
+    for name in registry.ALL_BASELINES:
+        spec = dataclasses.replace(registry.get_baseline_spec(name, args.dataset),
+                                   epochs=ZOO_TIMED_EPOCHS)
+        run, test_gt, scene_p = harness.train_baseline(
+            scene, gt, spec, lr=args.lr_grid[0], samples_per_class=args.samples_per_class,
+            seed=args.seed, device=dev)
+        h = run.history  # epoch 0 warms up
+        step_ms = 1e3 * sum(h["train_seconds"][1:]) / sum(h["train_steps"][1:])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        harness.evaluate_baseline(run, scene_p, test_gt, spec, n_classes, device=dev)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t
+        model = harness.build_model(spec, scene_p.shape[-1], n_classes, run.state, device=dev)
+        source = ScenePatchSource(scene_p, spec.patch_size, device=dev)
+        finite = torch.stack([torch.isfinite(harness.eval_logits(
+            model, source.gather_pixels(chunk))).all() for chunk, _ in batch_indices(
+                test_gt.size, 2048, shuffle=False)]).all()
+        if not bool(finite):
+            fail(f"16c: {name} gave a non-finite logit on the scene")
+        print(json.dumps({"phase": "zoo cli.benchmark", "model": name, "train_step_ms": step_ms,
+                          "train_steps_timed": sum(h["train_steps"][1:]),
+                          "scene_pixels_per_s": test_gt.size / eval_s, "scene_eval_s": eval_s,
+                          "oa": report[name]["oa"], "per_seed_oa": report[name]["per_seed_oa"],
+                          "card": smi_line}), flush=True)
+        del model
+        torch.cuda.empty_cache()
+    launches = launch_counts(fb)
+    if any(launches.values()):
+        fail(f"16c: the zoo path launched a fused-block kernel: {launches}")
+    print(json.dumps({"phase": "zoo launches", "fused_block_launches": launches}), flush=True)
+    print(json.dumps({"phase": "baseline_zoo", "seconds": time.perf_counter() - t_phase,
+                      "cli_benchmark_seconds": cli_s, "card": smi_line}), flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1980,6 +2213,9 @@ def main() -> int:
                                   pretrain_row["steps_per_epoch"],
                                   pretrain_row["epoch_loss"][0], scene_maps))
     shutil.rmtree(runs, ignore_errors=True)
+
+    # ---- 16. the baseline zoo: card against CPU, then cli.benchmark ----
+    launches["cli.benchmark"] = baseline_zoo(smi_line, fb)
 
     # ---- 7. result ----
     # times: per batch of 21 launches of the model whose evaluate path runs

@@ -1,7 +1,9 @@
 """Optimizer and learning-rate schedule of MAE pretraining.
 
 Counterpart of ``hsimae_tpu/train/optim.py`` (``timm_cosine_schedule``,
-``wd_mask``, ``adamw``, ``pretrain_optimizer``, ``finetune_optimizer``).
+``wd_mask``, ``adamw``, ``pretrain_optimizer``, ``finetune_optimizer``),
+and of the two optax optimizers the baseline harness uses
+(``hsimae_tpu/bench/harness.py::make_optimizer``).
 
 * The schedule is timm's ``CosineLRScheduler`` (one cycle): linear warmup
   from ``warmup_lr_init`` for ``t < warmup_t``, else
@@ -10,12 +12,15 @@ Counterpart of ``hsimae_tpu/train/optim.py`` (``timm_cosine_schedule``,
   the update and starts at ``warmup_lr_init``): ``sched(t) = cosine(max(t-1, 0))``.
   Fine-tuning runs it over epochs, shifted by one epoch.
 * Weight decay skips every parameter whose dotted name contains ``bias`` or
-  ``norm`` (the reference's rule by name).
+  ``norm`` (the reference's rule by name); ``AdamW(decay=decay_all)`` decays
+  every parameter, as ``optax.adamw`` without a mask does.
 * :class:`AdamW` has optax's ``adamw`` arithmetic: decoupled decay
   ``lr * wd * p`` added to the Adam direction, ``eps`` outside the square
   root, bias correction, the first moment optionally stored in bfloat16.
   Update ``k`` (``k`` updates already applied) runs at ``sched(k)``: the
   caller sets each group's ``lr`` before each step.
+* :class:`RMSprop` has ``optax.rmsprop(lr, momentum=m)``'s arithmetic,
+  which is not ``torch.optim.RMSprop``'s.
 """
 
 from __future__ import annotations
@@ -48,10 +53,16 @@ def wd_mask(name: str) -> bool:
     return not ("bias" in name or "norm" in name)
 
 
+def decay_all(name: str) -> bool:
+    """Every parameter takes weight decay (``optax.adamw`` without a mask)."""
+    return True
+
+
 class AdamW:
     """AdamW over named parameters, grouped by rate and decay: with one
     rate, ``param_groups[0]`` takes weight decay and ``param_groups[1]``
-    does not (:func:`wd_mask`); ``lr_scale(name)`` gives each parameter a
+    does not (``decay(name)``: :func:`wd_mask` by default, :func:`decay_all`
+    for every parameter); ``lr_scale(name)`` gives each parameter a
     multiple of the rate, and each multiple gets such a pair. Each group
     holds ``params``, ``names``, ``lr`` (:func:`set_lr` sets it to the rate
     times the group's ``lr_scale`` before each :meth:`step`) and
@@ -63,17 +74,18 @@ class AdamW:
     def __init__(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]],
                  weight_decay: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                  mu_dtype: Optional[torch.dtype] = None,
-                 lr_scale: Optional[Callable[[str], float]] = None):
+                 lr_scale: Optional[Callable[[str], float]] = None,
+                 decay: Callable[[str], bool] = wd_mask):
         groups: Dict[Tuple[float, bool], Dict] = {}
         for name, p in named_params:
             if not p.requires_grad:
                 continue
             scale = 1.0 if lr_scale is None else float(lr_scale(name))
-            for decay in (True, False):  # a pair for each rate, decay first
-                groups.setdefault((scale, decay), {
+            for decays in (True, False):  # a pair for each rate, decay first
+                groups.setdefault((scale, decays), {
                     "names": [], "params": [], "lr": 0.0, "lr_scale": scale,
-                    "weight_decay": weight_decay if decay else 0.0})
-            g = groups[scale, wd_mask(name)]
+                    "weight_decay": weight_decay if decays else 0.0})
+            g = groups[scale, bool(decay(name))]
             g["names"].append(name)
             g["params"].append(p)
         self.param_groups = list(groups.values())
@@ -144,6 +156,48 @@ class AdamW:
                     m.copy_(state["mu"][name])
                     v.copy_(state["nu"][name])
         self.count = int(state["count"])
+
+
+class RMSprop:
+    """``optax.rmsprop(lr, decay=0.9, eps=1e-8, momentum=m)`` over named
+    parameters: ``nu = decay * nu + (1 - decay) * g^2`` (from 0),
+    ``u = g / sqrt(nu + eps)`` (eps inside the root), then optax's chain
+    scales by the rate before the momentum trace: ``t = m * t - lr * u``,
+    ``p += t``. With a rate that changes between steps this is not
+    ``-lr * (u + m * t)``. One group (``param_groups[0]``, its ``lr`` set
+    before each :meth:`step`, as :class:`AdamW`'s)."""
+
+    def __init__(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]],
+                 momentum: float = 0.9, decay: float = 0.9, eps: float = 1e-8):
+        names, params = zip(*[(n, p) for n, p in named_params if p.requires_grad])
+        self.param_groups = [{"names": list(names), "params": list(params), "lr": 0.0,
+                              "lr_scale": 1.0}]
+        self.momentum, self.decay, self.eps = momentum, decay, eps
+        self.nu = [torch.zeros_like(p) for p in params]
+        self.trace = [torch.zeros_like(p) for p in params]
+
+    def zero_grad(self) -> None:
+        for p in self.param_groups[0]["params"]:
+            p.grad = None
+
+    @torch.no_grad()
+    def step(self) -> None:
+        g = self.param_groups[0]
+        live = [i for i, p in enumerate(g["params"]) if p.grad is not None]
+        if not live:
+            return
+        params = [g["params"][i] for i in live]
+        grads = [g["params"][i].grad for i in live]
+        nu = [self.nu[i] for i in live]
+        trace = [self.trace[i] for i in live]
+        torch._foreach_mul_(nu, self.decay)
+        torch._foreach_addcmul_(nu, grads, grads, value=1.0 - self.decay)
+        denom = torch._foreach_add(nu, self.eps)
+        torch._foreach_sqrt_(denom)
+        upd = torch._foreach_div(grads, denom)
+        torch._foreach_mul_(trace, self.momentum)
+        torch._foreach_add_(trace, upd, alpha=-g["lr"])
+        torch._foreach_add_(params, trace)
 
 
 def pretrain_optimizer(model: torch.nn.Module, lr: float, weight_decay: float,
