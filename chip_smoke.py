@@ -153,16 +153,32 @@ Phases, each of a fixed size; any failure exits non-zero:
    element within 1e-4 of its float64 window's maximum; c.
    ``hsimae_tpu_torch.cli.benchmark.main`` on the phase-4 scene (145x145x200,
    16 classes), all ten nets, 10 samples a class, lr grid 1e-3, 1 selection
-   seed, 2 test seeds, 20 epochs: its report keys and OA; then one 10-epoch
+   seed, 2 test seeds, 10 epochs: its report keys and OA; then one 10-epoch
    ``train_baseline`` and one ``evaluate_baseline`` of each net on that
    scene, outside the CLI: the train-step ms (epochs 1-9), the full-scene
    pixels/s, every logit of the scene finite; 0 fused-block launches over
    the CLI run and these;
+17. SVM-RBF and the quickstart (no kernel of ours in the SVM; the
+   quickstart's bf16 model on the bf16 kernel): a. the coarse grid stage
+   (35 (C, gamma) points x 120 class pairs = 4,200 duals) of
+   ``cli.benchmark``'s first test seed on the phase-4 scene, solved by the
+   batched SMO on the card and on the CPU: every problem's decision values
+   on the scene's 21,025 pixels within 1e-6 of the problem's largest, the
+   card's duals within ``[0, C]`` with ``|y'alpha| <= 1e-9 C`` and the
+   stopping rule met on a gradient computed afresh, the same (C, gamma)
+   chosen, the maps equal on >= 99.9% of pixels; b.
+   ``hsimae_tpu_torch.cli.benchmark.main --models SVM-RBF`` on that scene
+   (10 labels a class, 2 test seeds): JAX's report keys, ``best_lr`` null,
+   finite OA, each stage's seconds and largest iteration count, the
+   scene's pixels/s, 0 fused-block launches; c.
+   ``examples/quickstart_torch.py`` on the card at its documented budget:
+   every artifact present, ``finetune_curves.png`` decoded with zlib and
+   every series' colour in it, the path's launches (bf16 kernel only);
 7. (last) a ``kernels`` JSON line, with each kernel's launches on each path
    (counts set to 0 just before the path), the card's name and power limit,
    then ``{"ok": true, "device": {...}}``.
 
-Phases run in the order 1-6, 11, 8-10, 12, 13, 14, 15, 16, 7.
+Phases run in the order 1-6, 11, 8-10, 12, 13, 14, 15, 16, 17, 7.
 """
 
 from __future__ import annotations
@@ -315,10 +331,20 @@ ZOO_TOL = 1e-4  # logits, loss, parameters, buffers: |card - cpu| <= tol * max(1
 ZOO_GRAD_FLOOR, ZOO_GRAD_K = 1e-3, 10.0
 ZOO_ARGV = ["--synthetic", "--synthetic-size", "145", "--synthetic-bands", "200",
             "--synthetic-classes", "16", "--samples-per-class", "10", "--lr-grid", "1e-3",
-            "--selection-seeds", "1", "--test-seeds", "2", "--epochs", "20",
+            "--selection-seeds", "1", "--test-seeds", "2", "--epochs", "10",
             "--scene-seed", "0", "--device", "cuda"]  # phase 4's scene
 ZOO_REPORT_KEYS = ["best_lr", "oa", "aa", "kappa", "per_seed_oa"]
 ZOO_TIMED_EPOCHS = 10  # 16c's timed run of each net: 2 steps an epoch, epoch 0 not timed
+# phase 17: SVM-RBF on the phase-4 scene (cli.benchmark's first test seed), then the quickstart
+SVM_ARGV = ZOO_ARGV + ["--models", "SVM-RBF"]  # 10 labels a class, 2 test seeds
+SVM_DEC_TOL = 1e-6  # 17a: decision values, card against CPU, scaled by the problem's largest
+SVM_BALANCE_TOL = 1e-9  # 17a: |y'alpha| <= tol * C
+QUICKSTART = "examples/quickstart_torch.py"
+QUICKSTART_FILES = ["pt/params_final.pt", "ft/finetuned.pt", "ft/train_log.npy",
+                    "ft/finetune_curves.png", "model.pt2", "maps/scene_pred.png",
+                    "maps/scene_pred_masked.png", "maps_artifact/scene_pred.png",
+                    "maps_artifact/scene_pred_masked.png"]
+QUICKSTART_CURVES = ["loss", "loss_rec", "train_aa", "val_loss", "val_oa", "val_aa", "val_kappa"]
 # the serving child: loads an artifact where hsimae_tpu_torch.models cannot be imported,
 # answers each request size, and prints one JSON line (launches, pack builds, timings)
 SERVE_CHILD = """
@@ -996,9 +1022,10 @@ def cli_finetune(smi_line: str, fb, hsimae_model, dname: str, pretrained: Path,
     return launches
 
 
-def read_png_rgb(path: Path):
+def read_png_rgb(path: Path, text: dict = None):
     """An 8-bit RGB PNG whose rows all use filter 0 (what ``save_colormap``
-    writes), decoded with zlib, every chunk's CRC checked -> [h, w, 3] uint8."""
+    writes), decoded with zlib, every chunk's CRC checked -> [h, w, 3] uint8.
+    Its ``tEXt`` chunks go into ``text`` when given."""
     import numpy as np
 
     data = path.read_bytes()
@@ -1017,6 +1044,9 @@ def read_png_rgb(path: Path):
             size = (h, w)
         elif kind == b"IDAT":
             idat += body
+        elif kind == b"tEXt" and text is not None:
+            key, value = body.split(b"\0", 1)
+            text[key.decode("latin-1")] = value.decode("latin-1")
         pos += 12 + n
     h, w = size
     rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
@@ -2092,6 +2122,157 @@ def baseline_zoo(smi_line: str, fb) -> dict:
     return launches
 
 
+# --------------------------- phase 17: SVM-RBF, the quickstart ---------------------------
+
+
+def svm_rbf_path(smi_line: str, fb) -> dict:
+    """Phase 17a/b (module docstring): the batched SMO on the card against
+    the same solver on the CPU, then ``cli.benchmark --models SVM-RBF``.
+    Returns the benchmark path's launches of each kernel (0 expected)."""
+    import itertools
+
+    import numpy as np
+    import torch
+    from hsimae_tpu_torch.cli import benchmark as bench_cli
+    from hsimae_tpu_torch.data.sampling import sample_per_class, train_val_split
+    from hsimae_tpu_torch.data.synthetic import make_synthetic_scene
+    from hsimae_tpu_torch.models.baselines import svm_rbf
+
+    # ---- 17a. the coarse stage of the first test seed, card against CPU ----
+    t_a = time.perf_counter()
+    args = bench_cli.build_parser().parse_args(SVM_ARGV)
+    scene, gt = make_synthetic_scene(args.synthetic_size, args.synthetic_size,
+                                     bands=args.synthetic_bands,
+                                     n_classes=args.synthetic_classes, seed=args.scene_seed)
+    sc = np.asarray(scene, np.float64)
+    sc = (sc - sc.min()) / (sc.max() - sc.min())
+    rng = np.random.default_rng(args.seed)  # run_svm's draws, in its order
+    tr_idx, _ = sample_per_class(gt.reshape(-1), num=args.samples_per_class, rng=rng)
+    x, y = sc.reshape(-1, sc.shape[-1])[tr_idx], gt.reshape(-1)[tr_idx]
+    tr_i, tr_y, va_i, va_y = train_val_split(np.arange(len(x)), y, 0.5, rng=rng)
+    points = list(itertools.product(svm_rbf.COARSE_C, svm_rbf.COARSE_GAMMA))
+    pixels = sc.astype(np.float32).reshape(-1, sc.shape[-1])
+    grids, solve_s = {}, {}
+    for dev in ("cuda", "cpu"):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        grids[dev] = svm_rbf.OvOGrid(x[tr_i], tr_y, points, device=dev)
+        torch.cuda.synchronize()
+        solve_s[dev] = time.perf_counter() - t
+    card, cpu = grids["cuda"], grids["cpu"]
+    dec_cpu = cpu.decision_function(pixels)  # [points, pixels, pairs]
+    err = ((card.decision_function(pixels).cpu() - dec_cpu).abs().amax(1)
+           / dec_cpu.abs().amax(1))
+    worst = divmod(int(err.argmax()), len(card.pairs))
+    alpha, c = card.alpha, card.c
+    in_box = bool(((alpha >= 0) & (alpha <= c[:, None])).all())
+    balance = float(((card.y * alpha).sum(1).abs() / c).max())
+    gap = float(svm_rbf.solution_gap(card.q, card.y, c, alpha).max())
+    best = {dev: svm_rbf.best_point(g, x[va_i], va_y)[0] for dev, g in grids.items()}
+    maps = {dev: g.predict(pixels, [best[dev]])[0] for dev, g in grids.items()}
+    agreement = float((maps["cuda"] == maps["cpu"]).mean())
+    row = {"phase": "svm card vs cpu", "stage": "coarse", "seed": args.seed,
+           "points": len(points), "problems": card.y.shape[0], "n_max": card.y.shape[1],
+           "train_rows": len(tr_i), "pixels": len(pixels), "solve_s": solve_s,
+           "max_iters": {"cuda": int(card.iters.max()), "cpu": int(cpu.iters.max())},
+           "dec_max_scaled_err": float(err.max()),
+           "dec_worst": {"point": points[worst[0]], "pair": card.pairs[worst[1]]},
+           "alpha_in_box": in_box, "max_balance": balance, "max_gap": gap, "tol": card.tol,
+           "best": {dev: points[k] for dev, k in best.items()}, "map_agreement": agreement,
+           "seconds": time.perf_counter() - t_a, "card": smi_line}
+    print(json.dumps(row), flush=True)
+    if not (row["dec_max_scaled_err"] <= SVM_DEC_TOL and in_box
+            and balance <= SVM_BALANCE_TOL and gap <= card.tol * (1 + 1e-6)
+            and best["cuda"] == best["cpu"] and agreement >= MIN_AGREEMENT):
+        fail(f"17a: the SMO on the card disagrees with the CPU: {row}")
+    del grids, card, cpu, dec_cpu
+    torch.cuda.empty_cache()
+
+    # ---- 17b. cli.benchmark --models SVM-RBF ----
+    made, scene_s = [], []
+    real_train, real_test = svm_rbf.SVMRBF.train, svm_rbf.SVMRBF.test
+
+    def train(self, *a, **kw):
+        made.append(self)
+        return real_train(self, *a, **kw)
+
+    def test(self, *a, **kw):  # predict_scene (ends in a host read) and the metrics
+        t = time.perf_counter()
+        out = real_test(self, *a, **kw)
+        scene_s.append(time.perf_counter() - t)
+        return out
+
+    svm_rbf.SVMRBF.train, svm_rbf.SVMRBF.test = train, test
+    reset_counts(fb)
+    try:
+        t0 = time.perf_counter()
+        report = bench_cli.main(SVM_ARGV)
+        cli_s = time.perf_counter() - t0
+    finally:
+        svm_rbf.SVMRBF.train, svm_rbf.SVMRBF.test = real_train, real_test
+    launches = launch_counts(fb)
+    got = report.get("SVM-RBF", {})
+    if (list(got) != ZOO_REPORT_KEYS or got["best_lr"] is not None
+            or len(got["per_seed_oa"]) != args.test_seeds
+            or not all(math.isfinite(v) for v in got["per_seed_oa"])):
+        fail(f"17b: cli.benchmark's SVM-RBF report: {got}")
+    if any(launches.values()):
+        fail(f"17b: the SVM path launched a fused-block kernel: {launches}")
+    for svm, s in zip(made, scene_s):
+        print(json.dumps({"phase": "svm cli.benchmark", "seed": svm.seed, "best_c": svm.best_c,
+                          "best_gamma": svm.best_gamma,
+                          "stages": [{k: v for k, v in st.items() if k != "scores"}
+                                     for st in svm.stage_stats],
+                          "scene_s": s, "scene_pixels_per_s": len(pixels) / s,
+                          "card": smi_line}), flush=True)
+    print(json.dumps({"phase": "svm_rbf", "report": got, "cli_benchmark_seconds": cli_s,
+                      "fused_block_launches": launches, "card": smi_line}), flush=True)
+    return launches
+
+
+def quickstart_path(smi_line: str, fb, workdir: Path) -> dict:
+    """Phase 17c (module docstring): ``examples/quickstart_torch.py`` on the
+    card. Returns its launches of each kernel."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+    from hsimae_tpu_torch.utils import logger
+
+    root = Path(__file__).resolve().parent
+    spec = importlib.util.spec_from_file_location("quickstart_torch", root / QUICKSTART)
+    qs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(qs)
+    shutil.rmtree(workdir, ignore_errors=True)
+    reset_counts(fb)
+    t0 = time.perf_counter()
+    labels = np.asarray(qs.main(str(workdir), device="cuda"))  # numpy in, numpy out
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts(fb)
+    missing = [f for f in QUICKSTART_FILES if not (workdir / f).is_file()]
+    text = {}
+    rgb = read_png_rgb(workdir / "ft" / "finetune_curves.png", text)
+    legend = [line.split() for line in text.get("legend", "").splitlines()]
+    colours = {tuple(int(c) for c in v) for v in rgb.reshape(-1, 3)}
+    absent = [k for k, c, _ in legend if logger.LETTER_RGB[c] not in colours]
+    maps = [read_png_rgb(workdir / f).shape for f in QUICKSTART_FILES if f.endswith("pred.png")]
+    row = {"phase": "quickstart", "seconds": seconds, "served_labels": labels.tolist(),
+           "launches": launches, "curves": [k for k, _, _ in legend],
+           "curve_colours_absent": absent, "curves_png": list(rgb.shape),
+           "map_pngs": [list(m) for m in maps], "card": smi_line}
+    print(json.dumps(row), flush=True)
+    if missing or labels.shape != (5,) or labels.min() < 1:
+        fail(f"17c: the quickstart's artifacts or labels: missing {missing}, labels {labels}")
+    if [k for k, _, _ in legend] != QUICKSTART_CURVES or absent:
+        fail(f"17c: finetune_curves.png lacks a series or a colour: {row}")
+    if launches[MAIN_KERNEL["bfloat16"]] == 0 or sum(launches.values()) != launches[
+            MAIN_KERNEL["bfloat16"]]:
+        fail(f"17c: the bf16 quickstart did not run on the bf16 kernel alone: {launches}")
+    shutil.rmtree(workdir, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2216,6 +2397,14 @@ def main() -> int:
 
     # ---- 16. the baseline zoo: card against CPU, then cli.benchmark ----
     launches["cli.benchmark"] = baseline_zoo(smi_line, fb)
+
+    # ---- 17. SVM-RBF (card against CPU, cli.benchmark), the quickstart ----
+    t_phase = time.perf_counter()
+    launches["cli.benchmark SVM-RBF"] = svm_rbf_path(smi_line, fb)
+    launches["quickstart"] = quickstart_path(smi_line, fb, runs / "quickstart")
+    shutil.rmtree(runs, ignore_errors=True)
+    print(json.dumps({"phase": "svm_and_quickstart", "seconds": time.perf_counter() - t_phase,
+                      "card": smi_line}), flush=True)
 
     # ---- 7. result ----
     # times: per batch of 21 launches of the model whose evaluate path runs

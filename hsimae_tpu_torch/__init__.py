@@ -15,3 +15,7 @@ import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+
+from hsimae_tpu_torch.version import __version__
+
+__all__ = ["__version__"]

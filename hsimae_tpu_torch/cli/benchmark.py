@@ -9,7 +9,8 @@ report mean±std and each seed's OA as one JSON object.
 
 Counterpart of ``hsimae_tpu/cli/benchmark.py``: its flags, defaults and
 report keys, plus ``--device`` (``cuda`` by default; ``cpu`` on request).
-``--models`` offers the ten nets; SVM-RBF is not ported yet.
+``--models`` offers the ten nets and ``SVM-RBF`` (:func:`run_svm`; its
+``best_lr`` is null).
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ from hsimae_tpu_torch.utils.seed import seed_everything
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--models", nargs="+", default=["SSFTT"], choices=ALL_BASELINES)
+    p.add_argument("--models", nargs="+", default=["SSFTT"],
+                   choices=ALL_BASELINES + ["SVM-RBF"])
     p.add_argument("--dataset", default="synthetic",
                    help="dataset name for per-dataset hyperparams")
     p.add_argument("--scene", default=None)
@@ -74,6 +76,31 @@ def _load(args):
     return np.load(args.scene), np.load(args.gt)
 
 
+def run_svm(scene, gt, args):
+    """SVM-RBF on 1x1-pixel spectra, one run a test seed: the scene min-max
+    normalised in float64, ``samples_per_class`` training pixels drawn from
+    ``default_rng(seed)``, whose next draws split them in both grid stages;
+    the scene predicted from its float32 rounding. -> one ``Metrics`` a seed."""
+    from hsimae_tpu_torch.data.sampling import sample_per_class
+    from hsimae_tpu_torch.models.baselines.svm_rbf import SVMRBF
+
+    seeds = [args.seed + i for i in range(args.test_seeds)]
+    ms = []
+    sc = np.asarray(scene, np.float64)
+    sc = (sc - sc.min()) / (sc.max() - sc.min())
+    for seed in seeds:
+        rng = np.random.default_rng(seed)
+        tr_idx, test_gt = sample_per_class(gt.reshape(-1), num=args.samples_per_class, rng=rng)
+        x = sc.reshape(-1, sc.shape[-1])[tr_idx]
+        y = gt.reshape(-1)[tr_idx]
+        svm = SVMRBF(seed, device=args.device).train(x, y, rng=rng)
+        m, _ = svm.test(sc.astype(np.float32), test_gt.reshape(gt.shape))
+        ms.append(m)
+        print(f"[SVM-RBF] seed {seed}: {m} C={svm.best_c:g} gamma={svm.best_gamma:g}",
+              flush=True)
+    return ms
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     seed_everything(args.seed)
@@ -82,30 +109,35 @@ def main(argv=None):
     report = {}
 
     for name in args.models:
-        spec = get_baseline_spec(name, args.dataset)
-        if args.epochs:
-            spec = dataclasses.replace(spec, epochs=args.epochs)
+        if name == "SVM-RBF":
+            ms = run_svm(scene, gt, args)
+            best_lr = None
+        else:
+            spec = get_baseline_spec(name, args.dataset)
+            if args.epochs:
+                spec = dataclasses.replace(spec, epochs=args.epochs)
 
-        scores = {}
-        for lr in args.lr_grid:
-            vals = []
-            for s in range(args.selection_seeds):
-                run, _, _ = train_baseline(scene, gt, spec, lr=lr,
-                                           samples_per_class=args.samples_per_class,
-                                           seed=args.seed + s, device=args.device)
-                vals.append(run.val_metrics.mean3)
-            scores[lr] = float(np.mean(vals))
-            print(f"[{name}] lr={lr:g} selection {scores[lr]:.4f}", flush=True)
-        best_lr = max(scores, key=scores.get)
+            scores = {}
+            for lr in args.lr_grid:
+                vals = []
+                for s in range(args.selection_seeds):
+                    run, _, _ = train_baseline(scene, gt, spec, lr=lr,
+                                               samples_per_class=args.samples_per_class,
+                                               seed=args.seed + s, device=args.device)
+                    vals.append(run.val_metrics.mean3)
+                scores[lr] = float(np.mean(vals))
+                print(f"[{name}] lr={lr:g} selection {scores[lr]:.4f}", flush=True)
+            best_lr = max(scores, key=scores.get)
 
-        ms = []
-        for s in range(args.test_seeds):
-            run, test_gt, scene_p = train_baseline(
-                scene, gt, spec, lr=best_lr, samples_per_class=args.samples_per_class,
-                seed=args.seed + s, device=args.device)
-            m = evaluate_baseline(run, scene_p, test_gt, spec, n_classes, device=args.device)
-            ms.append(m)
-            print(f"[{name}] seed {args.seed + s}: {m}", flush=True)
+            ms = []
+            for s in range(args.test_seeds):
+                run, test_gt, scene_p = train_baseline(
+                    scene, gt, spec, lr=best_lr, samples_per_class=args.samples_per_class,
+                    seed=args.seed + s, device=args.device)
+                m = evaluate_baseline(run, scene_p, test_gt, spec, n_classes,
+                                      device=args.device)
+                ms.append(m)
+                print(f"[{name}] seed {args.seed + s}: {m}", flush=True)
 
         oas = np.array([m.oa for m in ms])
         aas = np.array([m.aa for m in ms])

@@ -15,8 +15,9 @@ The multi-seed protocol (lr grid on 3 selection seeds, then 5 test seeds):
 ``.msgpack``; without it the model starts from a seeded init. bf16 compute
 by default (``--no-bf16`` for f32). ``--eval`` classifies the whole scene
 with the fine-tuned weights and scores the pixels not used in training.
-``--workdir`` receives ``finetuned.pt``, ``train_log.npy``, the metric
-stream and (with ``--eval``) the colormaps; under ``--protocol`` it holds
+``--workdir`` receives ``finetuned.pt``, ``train_log.npy``,
+``finetune_curves.png``, the metric stream and (with ``--eval``) the
+colormaps; under ``--protocol`` it holds
 ``protocol_runs.jsonl``, from which a restarted protocol resumes.
 
 Under ``python -m torch.distributed.run --nproc-per-node N -m

@@ -69,11 +69,12 @@ from hsimae_tpu_torch.parallel.mesh import (
 )
 from hsimae_tpu_torch.train.optim import AdamW, finetune_optimizer, set_lr
 from hsimae_tpu_torch.train.pretrain import step_generator, take_drop_keep
-from hsimae_tpu_torch.utils.logger import MetricLogger
+from hsimae_tpu_torch.utils.logger import MetricLogger, plot_history
 from hsimae_tpu_torch.utils.metrics import Metrics, metrics_from_raw_confusion
 
 # the encoder's parameters: a pretrained dict must cover at least one
 ENCODER_PARAMS = ("patch_embed", "blocks_1", "blocks_2", "blocks", "norm")
+TIMING_KEYS = ("epoch_seconds", "val_seconds")  # history keys of the port's own, not curves
 
 
 def ce_weights(labels: torch.Tensor, weight: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -242,9 +243,11 @@ def dual_branch_finetune(
     loop's curves (``loss``, ``loss_rec``, ``train_aa``, ``val_*``) plus
     ``epoch_seconds`` (the dual steps of each epoch, to their fetch) and
     ``val_seconds`` (each validation pass, to its fetch). With ``workdir``:
-    ``finetuned.pt`` (the state dict) and ``train_log.npy``. ``mesh``
-    (default: :func:`default_mesh`) makes the loop data-parallel (module
-    docstring); the result is then the same on every rank."""
+    ``finetuned.pt`` (the state dict), ``train_log.npy`` and
+    ``finetune_curves.png`` (:func:`plot_history` of ``history`` without
+    the two timings). ``mesh`` (default: :func:`default_mesh`) makes the
+    loop data-parallel (module docstring); the result is then the same on
+    every rank."""
     seed = cfg.seed if seed is None else seed
     if mesh is None:
         mesh = default_mesh()
@@ -362,6 +365,9 @@ def dual_branch_finetune(
         save_params(f"{workdir}/finetuned.pt", model)
         np.save(f"{workdir}/train_log.npy",
                 np.array([hist["loss"], hist["val_oa"]], dtype=object))
+        # the curves of JAX's history keys; the timings are not curves there
+        plot_history(f"{workdir}/finetune_curves.png",
+                     {k: v for k, v in hist.items() if k not in TIMING_KEYS})
     barrier()
     return FinetuneResult(
         params={k: v.detach().cpu() for k, v in model.state_dict().items()},

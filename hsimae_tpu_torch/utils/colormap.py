@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import struct
 import zlib
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -55,15 +56,18 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
 
 
-def encode_png_rgb(rgb: np.ndarray) -> bytes:
+def encode_png_rgb(rgb: np.ndarray, text: Optional[Dict[str, str]] = None) -> bytes:
     """An ``[h, w, 3]`` uint8 image as PNG bytes (bit depth 8, colour type 2,
-    filter byte 0 before each row)."""
+    filter byte 0 before each row), with a ``tEXt`` chunk for each
+    ``keyword: text`` of ``text`` (Latin-1)."""
     rgb = np.ascontiguousarray(rgb, dtype=np.uint8)
     h, w, c = rgb.shape
     assert c == 3, rgb.shape
     rows = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, w * 3)], axis=1)
     ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
-    return (_PNG_SIGNATURE + _chunk(b"IHDR", ihdr)
+    texts = b"".join(_chunk(b"tEXt", k.encode("latin-1") + b"\0" + v.encode("latin-1"))
+                     for k, v in (text or {}).items())
+    return (_PNG_SIGNATURE + _chunk(b"IHDR", ihdr) + texts
             + _chunk(b"IDAT", zlib.compress(rows.tobytes())) + _chunk(b"IEND", b""))
 
 
