@@ -174,11 +174,33 @@ Phases, each of a fixed size; any failure exits non-zero:
    ``examples/quickstart_torch.py`` on the card at its documented budget:
    every artifact present, ``finetune_curves.png`` decoded with zlib and
    every series' colour in it, the path's launches (bf16 kernel only);
+18. fused pretraining (``--fused-steps``: K train steps captured as one
+   CUDA graph): a. float32 HSIMAE-B at phase 8's batch, two chunks of 3
+   steps (one on each kept grid, injected draws) through
+   ``make_fused_pretrain_chunk`` on the card against the same six eager
+   steps on the card and the same chunks on the CPU (loss 1e-4 relative,
+   parameters ``1e-4 * max(1, |p|)``), and a one-rank gloo group on the
+   card, which the chunk must refuse (gloo collectives cannot be
+   captured); b. ``hsimae_tpu_torch.cli.pretrain --fused-steps 16`` at phase
+   9's setting (HSIMAE-B, bf16, batch 2048, mask 0.5; an epoch of 14 steps,
+   so K 14): two epochs (finite, falling), a run stopped after epoch 1 and
+   resumed by the CLI (epoch-2 loss within 1e-3), epoch rates with and
+   without the capture beside phase 9's eager rate, peak memory beside
+   phase 9's; a fresh two-epoch run with the background writer (2 kept)
+   and ``--profile`` (epoch 2's capture runs during a checkpoint write and
+   under the profiler; its trace written; losses within 1e-3); then, in
+   bf16 and float32, one chunk of 16 built as the loop builds it against
+   16 warm eager steps: capture seconds, warm ms, peak memory, and the
+   device's busy share in a ``torch.profiler`` trace of one bf16 chunk
+   (the CLI runs give the capture seconds of each kept grid); c. the fused CLI at one NCCL
+   rank under ``torch.distributed.run`` (phase 15d's route; its all-reduce
+   is captured), epoch losses within 1e-3 of 18b's. No block kernel
+   launches anywhere in phase 18;
 7. (last) a ``kernels`` JSON line, with each kernel's launches on each path
    (counts set to 0 just before the path), the card's name and power limit,
    then ``{"ok": true, "device": {...}}``.
 
-Phases run in the order 1-6, 11, 8-10, 12, 13, 14, 15, 16, 17, 7.
+Phases run in the order 1-6, 11, 8-10, 12, 13, 14, 15, 18, 16, 17, 7.
 """
 
 from __future__ import annotations
@@ -187,7 +209,9 @@ import contextlib
 import json
 import math
 import os
+import random
 import shutil
+import socket
 import struct
 import subprocess
 import sys
@@ -345,6 +369,13 @@ QUICKSTART_FILES = ["pt/params_final.pt", "ft/finetuned.pt", "ft/train_log.npy",
                     "maps/scene_pred_masked.png", "maps_artifact/scene_pred.png",
                     "maps_artifact/scene_pred_masked.png"]
 QUICKSTART_CURVES = ["loss", "loss_rec", "train_aa", "val_loss", "val_oa", "val_aa", "val_kappa"]
+# phase 18: fused pretraining (--fused-steps). 18a: float32 HSIMAE-B at phase 8's batch,
+# one chunk of FUSED_K steps on each kept grid, on random 32-band scenes
+FUSED_K = 3
+FUSED_GRIDS = [(2, 9), (3, 6)]
+FUSED_SCENES = (2, 64)  # scenes of 64 x 64 px
+FUSED_STEPS = 16  # 18b/c: --fused-steps at phase 9's setting (an epoch of 14 steps: K 14)
+FUSED_PROFILED_REPLAYS = 3  # 18b: warm chunks timed, then one traced
 # the serving child: loads an artifact where hsimae_tpu_torch.models cannot be imported,
 # answers each request size, and prints one JSON line (launches, pack builds, timings)
 SERVE_CHILD = """
@@ -1724,6 +1755,13 @@ def rank_job(kind: str, report_dir: str, extra: list) -> int:
             # 15f: cli.finetune from phase 9's bf16 weights, --eval
             out["finetune"] = dp_finetune_ranks(
                 fb, extra[1], Path(extra[2]) / f"smoke_dp_finetune_rank{rank}.log")
+        elif kind == "nccl_fused":  # 18c: the fused CLI at one rank
+            from hsimae_tpu_torch.cli import pretrain as cli
+
+            out["mesh"] = str(default_mesh())
+            reset_counts(fb)
+            out["hist"] = cli.main(PRETRAIN_ARGV + ["--fused-steps", str(FUSED_STEPS)])[1]
+            out["pretrain_launches"] = launch_counts(fb)
         else:  # nccl: cli.pretrain's parts at one rank, stopped after epoch 1
             from hsimae_tpu_torch.cli import pretrain as cli
             from hsimae_tpu_torch.train.pretrain import run_pretraining
@@ -1745,8 +1783,6 @@ def launch_ranks(n: int, kind: str, report_dir: Path, log_path: Path, extra: lis
                  timeout: int) -> list:
     """Run ``n`` ranks of :func:`rank_job` under ``python3 -m
     torch.distributed.run`` (output to ``log_path``) -> each rank's report."""
-    import socket
-
     import torch
 
     shutil.rmtree(report_dir, ignore_errors=True)
@@ -2273,6 +2309,330 @@ def quickstart_path(smi_line: str, fb, workdir: Path) -> dict:
     return launches
 
 
+# ----------------------------- phase 18: fused pretraining -----------------------------
+
+
+def fused_chunk_card_vs_eager(smi_line: str, fb) -> dict:
+    """Phase 18a: float32 HSIMAE-B at phase 8's batch, two chunks of
+    ``FUSED_K`` steps (one on each kept grid, injected draws) through the
+    captured chunk on the card, against the same six eager steps on the card
+    and the same chunks on the CPU; then a gloo group on the card, which
+    the chunk must refuse."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from hsimae_tpu_torch.config import preset
+    from hsimae_tpu_torch.data.pipeline import MultiScenePatchSource
+    from hsimae_tpu_torch.data.windows import build_pretrain_cut_index
+    from hsimae_tpu_torch.models.hsimae import build_hsimae
+    from hsimae_tpu_torch.parallel.mesh import make_mesh, shutdown_distributed
+    from hsimae_tpu_torch.train.optim import pretrain_optimizer
+    from hsimae_tpu_torch.train.pretrain import (
+        draw_pretrain,
+        make_fused_pretrain_chunk,
+        make_pretrain_step,
+    )
+
+    cfg = preset("HSIMAE-B", compute_dtype=torch.float32)
+    n_scenes, px = FUSED_SCENES
+    scenes = list(np.random.default_rng(9).random((n_scenes, px, px, cfg.bands),
+                                                  dtype=np.float32))
+    locs_all = build_pretrain_cut_index([s.shape for s in scenes], cfg.img_size,
+                                        coarse_from=n_scenes).locs
+    locs = locs_all[np.random.default_rng(10).integers(
+        0, len(locs_all), (len(FUSED_GRIDS), FUSED_K, STEP_BATCH))]
+    probe = build_hsimae(cfg, device="cpu")
+    gen = torch.Generator().manual_seed(11)
+    draws = [[draw_pretrain(probe, STEP_BATCH, lt, ll, gen, "cpu") for _ in range(FUSED_K)]
+             for lt, ll in FUSED_GRIDS]
+
+    def run(device, fused):
+        src = MultiScenePatchSource(scenes, patch_size=cfg.img_size, device=device)
+        model = build_hsimae(cfg, seed=0, device=device)
+        opt, sched = pretrain_optimizer(model, 5e-3, 0.05, total_steps=STEP_TOTAL)
+        chunk = make_fused_pretrain_chunk(model, opt, sched, src) if fused else None
+        step = None if fused else make_pretrain_step(model, opt, sched)
+        losses = []
+        for (lt, ll), rows, ds in zip(FUSED_GRIDS, locs, draws):
+            ds = [to_device(d, device) for d in ds]
+            if fused:
+                losses.append(chunk(rows, lt, ll, draws=ds).item())
+            else:
+                losses.append(float(np.mean([step(src.gather(r), lt, ll, draws=d).item()
+                                             for r, d in zip(rows, ds)])))
+        params = {k: v.detach().cpu() for k, v in model.named_parameters()}
+        return losses, params, opt.count, (chunk.capture_seconds if fused else None)
+
+    reset_counts(fb)
+    t0 = time.perf_counter()
+    card, card_params, count, capture_s = run("cuda", True)
+    t_card = time.perf_counter() - t0
+    launches = launch_counts(fb)
+    eager, eager_params, eager_count, _ = run("cuda", False)
+    cpu, cpu_params, _, _ = run("cpu", True)
+
+    def scaled(a, b):
+        return max(((a[k] - v).abs() / v.abs().clamp(min=1.0)).max().item() for k, v in b.items())
+
+    loss_rel = {name: max(abs(a - b) / abs(b) for a, b in zip(card, other))
+                for name, other in (("eager_card", eager), ("chunk_cpu", cpu))}
+    param_err = {"eager_card": scaled(card_params, eager_params),
+                 "chunk_cpu": scaled(card_params, cpu_params)}
+
+    # a gloo group on the card: its collectives cannot be captured, so the chunk must refuse
+    refused = None
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh(device_type="cuda")
+        model = build_hsimae(cfg, seed=0, device="cuda")
+        opt, sched = pretrain_optimizer(model, 5e-3, 0.05, total_steps=STEP_TOTAL)
+        src = MultiScenePatchSource(scenes, patch_size=cfg.img_size, device="cuda")
+        chunk = make_fused_pretrain_chunk(model, opt, sched, src, mesh=mesh)
+        try:
+            chunk(locs[0], *FUSED_GRIDS[0])
+        except RuntimeError as e:
+            refused = str(e)
+    finally:
+        shutdown_distributed()
+    ok = (max(loss_rel.values()) <= STEP_LOSS_RTOL and max(param_err.values()) <= STEP_PARAM_TOL
+          and count == eager_count == len(FUSED_GRIDS) * FUSED_K)
+    row = {"phase": "fused_chunk_card_vs_eager", "model": "HSIMAE-B", "dtype": "float32",
+           "batch": STEP_BATCH, "k": FUSED_K, "grids": FUSED_GRIDS, "chunk_losses": card,
+           "eager_card_losses": eager, "chunk_cpu_losses": cpu, "max_loss_rel": loss_rel,
+           "loss_rtol": STEP_LOSS_RTOL, "max_param_scaled_err": param_err,
+           "param_tol": STEP_PARAM_TOL, "updates": count,
+           "capture_s": {f"{lt}x{ll}": v for (lt, ll, _), v in capture_s.items()},
+           "card_s": t_card, "launches": launches, "gloo_refused": refused, "card": smi_line,
+           "ok": ok}
+    print(json.dumps(row), flush=True)
+    if not all(math.isfinite(v) for v in card + eager + cpu) or not ok:
+        fail(f"the fused chunk on the card disagrees with eager steps or the CPU: {row}")
+    if any(launches.values()):
+        fail(f"the fused chunk launched a block kernel: {launches}")
+    if refused is None or "gloo" not in refused:
+        fail(f"the fused chunk did not refuse a gloo group on the card: {refused}")
+    return row
+
+
+def chunk_busy_share(prof, wall_ms: float) -> dict:
+    """Device busy ms of a traced window (every CUDA kernel and copy's own
+    time) and its share of the window's wall time."""
+    from torch.autograd import DeviceType
+
+    busy, events = 0.0, 0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            busy += ev.self_device_time_total / 1e3
+            events += ev.count
+    return {"wall_ms": wall_ms, "device_busy_ms": busy, "device_busy_share": busy / wall_ms,
+            "device_events": events}
+
+
+def cli_fused_pretrain(smi_line: str, fb, workdir: Path, eager_row: dict) -> dict:
+    """Phase 18b: ``cli.pretrain --fused-steps 16`` at phase 9's setting
+    (HSIMAE-B, bf16, batch 2048): two epochs, a run stopped after epoch 1 and
+    resumed by the CLI, the warm rate beside phase 9's eager rate, peak
+    memory; a fresh run with the background writer and ``--profile``; then,
+    in bf16 and float32, one chunk of ``FUSED_STEPS`` built as
+    the loop builds it: its capture seconds, warm chunks against as many
+    warm eager steps, peak memory, and (bf16) the device's busy share in a
+    ``torch.profiler`` trace of one chunk."""
+    import numpy as np
+    import torch
+    from hsimae_tpu_torch.cli import pretrain as cli
+    from hsimae_tpu_torch.config import preset
+    from hsimae_tpu_torch.models.hsimae import build_hsimae
+    from hsimae_tpu_torch.models.masking import choose_grid_shape
+    from hsimae_tpu_torch.train.optim import pretrain_optimizer
+    from hsimae_tpu_torch.train.pretrain import (
+        make_fused_pretrain_chunk,
+        make_pretrain_step,
+        run_pretraining,
+    )
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    eager_spe = eager_row["steps_per_epoch"]
+    k = min(FUSED_STEPS, eager_spe)
+    spe = math.ceil(eager_spe / k) * k
+    argv = PRETRAIN_ARGV + ["--checkpoint-every", str(spe), "--fused-steps", str(FUSED_STEPS)]
+
+    def run(tag, extra=()):
+        reset_counts(fb)
+        torch.cuda.reset_peak_memory_stats()
+        _, hist = cli.main(argv + ["--workdir", str(workdir / tag), *extra])
+        torch.cuda.synchronize()
+        counts = launch_counts(fb)
+        if any(counts.values()):
+            fail(f"fused pretraining launched a block kernel: {counts}")
+        return hist, torch.cuda.max_memory_allocated()
+
+    t0 = time.perf_counter()
+    hist, peak = run("fused")
+    wall = time.perf_counter() - t0
+    losses = hist["epoch_loss"]
+    patches = spe * PRETRAIN_BATCH
+    warm = [patches / (patches / r - c) for r, c in zip(hist["patches_per_sec"],
+                                                        hist["capture_seconds"])]
+    # the kept grid each epoch's chunks draw, as run_pretraining draws them (one chunk an
+    # epoch here: each epoch's capture is its grid's)
+    args = cli.build_parser().parse_args(argv)
+    t_size, l_size = preset(args.model).t_size, preset(args.model).l_size
+    grids = [[choose_grid_shape(t_size, l_size, args.mask_ratio,
+                                random.Random(args.seed * 1000 + e)) for _ in range(spe // k)]
+             for e in range(len(hist["epoch_loss"]))]
+    row = {"main_path": "cli.pretrain --fused-steps", "model": "HSIMAE-B", "dtype": "bfloat16",
+           "batch": PRETRAIN_BATCH, "fused_steps": FUSED_STEPS, "k": k,
+           "steps_per_epoch_padded": spe, "steps_per_epoch_eager": eager_spe,
+           "cuts": eager_row["cuts"], "epoch_loss": losses,
+           "patches_per_sec": hist["patches_per_sec"],
+           "capture_seconds_by_epoch": hist["capture_seconds"], "grids_by_epoch": grids,
+           "patches_per_sec_without_capture": warm,
+           "eager_patches_per_sec_epoch_2": eager_row["patches_per_sec"][1],
+           "max_memory_allocated_bytes": peak,
+           "eager_max_memory_allocated_bytes": eager_row["max_memory_allocated_bytes"],
+           "kernel_launches": 0, "run_s": wall, "card": smi_line}
+    print(json.dumps(row), flush=True)
+    if len(losses) != 2 or not all(math.isfinite(v) for v in losses) or not losses[1] < losses[0]:
+        fail(f"fused pretraining epoch losses not finite and falling: {losses}")
+
+    # preemption after epoch 1 (same schedule), then the CLI resumes
+    args = cli.build_parser().parse_args(argv + ["--workdir", str(workdir / "resumed")])
+    source, index, mcfg, pcfg = cli.prepare(args)
+    run_pretraining(source, index.locs, mcfg, pcfg, workdir=args.workdir, resume=False,
+                    stop_after_epochs=1, device="cuda")
+    resumed, _ = run("resumed")
+    rel = abs(resumed["epoch_loss"][0] - losses[1]) / abs(losses[1])
+    row_r = {"check": "fused resume", "dtype": "bfloat16", "uninterrupted_epoch_2": losses[1],
+             "resumed_epoch_2": resumed["epoch_loss"], "rel": rel, "rtol": RESUME_RTOL,
+             "card": smi_line, "ok": len(resumed["epoch_loss"]) == 1 and rel <= RESUME_RTOL}
+    print(json.dumps(row_r), flush=True)
+    if not row_r["ok"]:
+        fail(f"the resumed fused run disagrees with the uninterrupted one: {row_r}")
+
+    # a fresh two-epoch run with the background writer and --profile: epoch 2's capture runs
+    # while epoch 1's checkpoint is written and under the profiler, which traces epoch 2
+    from hsimae_tpu_torch.checkpoints.async_io import checkpoint_steps
+
+    prof_dir = workdir / "profile"
+    bg, _ = run("bg_profiled", ["--ckpt-backend", "orbax", "--ckpt-max-keep", str(BG_KEEP),
+                                "--profile", str(prof_dir)])
+    traces = sorted(p.name for p in prof_dir.iterdir())
+    kept = checkpoint_steps(str(workdir / "bg_profiled"))
+    rel_bg = max(abs(a - b) / abs(b) for a, b in zip(bg["epoch_loss"], losses))
+    row_bg = {"check": "fused, background checkpoints and --profile", "dtype": "bfloat16",
+              "epoch_loss": bg["epoch_loss"], "rel": rel_bg, "rtol": RESUME_RTOL,
+              "kept_steps": kept, "profile_traces": traces,
+              "capture_seconds_by_epoch": bg["capture_seconds"], "card": smi_line}
+    print(json.dumps(row_bg), flush=True)
+    if rel_bg > RESUME_RTOL or kept != [spe, 2 * spe] or traces != ["epoch_1.trace.json"]:
+        fail(f"the fused run with background checkpoints and --profile is wrong: {row_bg}")
+
+    # one chunk of FUSED_STEPS built as the loop builds it, in each dtype: as many warm
+    # eager steps (gather + step each) timed first, then the capture and warm chunks; last, a
+    # trace of one bf16 chunk
+    locs_dev = torch.as_tensor(index.locs, dtype=torch.int64).to("cuda")
+    rows = locs_dev[torch.as_tensor(np.random.default_rng(12).integers(
+        0, len(index), (FUSED_STEPS, PRETRAIN_BATCH))).to("cuda")]
+    chunk_patches = FUSED_STEPS * PRETRAIN_BATCH
+    mid = FUSED_PROFILED_REPLAYS // 2
+
+    def timed(fn):
+        times = []
+        for _ in range(FUSED_PROFILED_REPLAYS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return times
+
+    def trained(cfg):
+        model = build_hsimae(cfg, seed=pcfg.seed, device="cuda")
+        return (model, *pretrain_optimizer(model, pcfg.lr, pcfg.weight_decay, 10 * FUSED_STEPS))
+
+    traced = None
+    for dtype in (torch.bfloat16, torch.float32):
+        cfg = mcfg.replace(compute_dtype=dtype)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(fb)
+        step = make_pretrain_step(*trained(cfg), seed=pcfg.seed)
+
+        def eager():
+            for i in range(FUSED_STEPS):
+                step(source.gather(rows[i]), *MASKED_GRIDS[0])
+
+        eager()  # warm-up
+        eager_ms = timed(eager)
+        peak_eager = torch.cuda.max_memory_allocated()
+        del step
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        chunk = make_fused_pretrain_chunk(*trained(cfg), source, seed=pcfg.seed)
+        chunk(rows, *MASKED_GRIDS[0])  # the capture
+        fused_ms = timed(lambda: chunk(rows, *MASKED_GRIDS[0]))
+        loss = chunk(rows, *MASKED_GRIDS[0]).item()
+        fused_med, eager_med = sorted(fused_ms)[mid], sorted(eager_ms)[mid]
+        row_c = {"check": "one fused chunk against eager steps", "model": "HSIMAE-B",
+                 "dtype": str(dtype).split(".")[1], "k": FUSED_STEPS, "batch": PRETRAIN_BATCH,
+                 "grid": MASKED_GRIDS[0],
+                 "capture_s": {f"{lt}x{ll}": v for (lt, ll, _), v in
+                               chunk.capture_seconds.items()},
+                 "chunk_ms": fused_ms, "eager_ms": eager_ms,
+                 "fused_step_ms": fused_med / FUSED_STEPS, "eager_step_ms": eager_med / FUSED_STEPS,
+                 "fused_patches_per_sec": chunk_patches / (fused_med / 1e3),
+                 "eager_patches_per_sec": chunk_patches / (eager_med / 1e3),
+                 "speedup": eager_med / fused_med, "loss": loss,
+                 "max_memory_allocated_bytes_eager": peak_eager,
+                 "max_memory_allocated_bytes_fused": torch.cuda.max_memory_allocated(),
+                 "launches": launch_counts(fb), "card": smi_line}
+        print(json.dumps(row_c), flush=True)
+        if not math.isfinite(loss) or any(row_c["launches"].values()):
+            fail(f"the fused chunk's loss is not finite or it launched a block kernel: {row_c}")
+        if dtype == torch.bfloat16:
+            traced = chunk
+        del chunk
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        traced(rows, *MASKED_GRIDS[0])
+        torch.cuda.synchronize()
+        traced_ms = 1e3 * (time.perf_counter() - t0)
+    print(json.dumps({"check": "trace of one bf16 fused chunk", "k": FUSED_STEPS,
+                      **chunk_busy_share(prof, traced_ms), "card": smi_line}), flush=True)
+    del traced
+    del source
+    torch.cuda.empty_cache()
+    return row
+
+
+def fused_nccl(smi_line: str, runs: Path, fused_row: dict) -> None:
+    """Phase 18c: the fused CLI at one NCCL rank (``torch.distributed.run``,
+    phase 15d's route): its gradient all-reduce is captured with the steps;
+    its epoch losses against 18b's. The rank's log goes to ``runs`` (its
+    tail is in the failure message)."""
+    t0 = time.perf_counter()
+    rank = launch_ranks(1, "nccl_fused", runs / "nccl_fused_reports",
+                        runs / "smoke_nccl_fused.log", [], timeout=600)[0]
+    loss = rank["hist"]["epoch_loss"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(loss, fused_row["epoch_loss"]))
+    row = {"main_path": "cli.pretrain --fused-steps (torch.distributed.run, 1 rank)",
+           "backend": rank["backend"], "mesh": rank["mesh"], "epoch_loss": loss,
+           "single_process_epoch_loss": fused_row["epoch_loss"], "rel": rel,
+           "rtol": RESUME_RTOL, "patches_per_sec": rank["hist"]["patches_per_sec"],
+           "capture_seconds_by_epoch": rank["hist"]["capture_seconds"],
+           "launches": rank["pretrain_launches"], "job_s": time.perf_counter() - t0,
+           "card": smi_line}
+    print(json.dumps(row), flush=True)
+    if rank["backend"] != "nccl" or len(loss) != 2 or rel > RESUME_RTOL \
+            or any(rank["pretrain_launches"].values()):
+        fail(f"the fused one-rank NCCL run disagrees with phase 18b: {row}")
+
+
 def main() -> int:
     import torch
 
@@ -2393,6 +2753,16 @@ def main() -> int:
     launches.update(data_parallel(smi_line, fb, hsimae_model, runs, root / "chiprun_out",
                                   pretrain_row["steps_per_epoch"],
                                   pretrain_row["epoch_loss"][0], scene_maps))
+
+    # ---- 18. fused pretraining: chunk against eager steps, the fused CLI, NCCL ----
+    t_phase = time.perf_counter()
+    fused_chunk_card_vs_eager(smi_line, fb)
+    torch.cuda.empty_cache()
+    fused_row = cli_fused_pretrain(smi_line, fb, runs / "fused", pretrain_row)
+    fused_nccl(smi_line, runs, fused_row)
+    launches["cli.pretrain --fused-steps"] = dict.fromkeys(KERNELS, 0)  # checked there: none
+    print(json.dumps({"phase": "fused_pretraining", "seconds": time.perf_counter() - t_phase,
+                      "card": smi_line}), flush=True)
     shutil.rmtree(runs, ignore_errors=True)
 
     # ---- 16. the baseline zoo: card against CPU, then cli.benchmark ----

@@ -13,6 +13,9 @@ writes ``ckpt_{step}.pt`` on the training thread and keeps all;
 ``<step>/state.pt`` on a background thread and keeps the newest
 ``--ckpt-max-keep``. ``--profile DIR`` writes a ``torch.profiler`` trace of
 the second epoch. bf16 compute by default (``--no-bf16`` for f32).
+``--fused-steps K`` trains K steps a dispatch: on a card each chunk of K
+steps is one CUDA graph replay (captured once per kept-grid shape), on the
+CPU the same steps run in a loop; the epoch is padded to whole chunks.
 
 Data-parallel over N ranks (each rank trains its rows of every global
 batch of ``--batch-size``; rank 0 logs and writes the workdir):
@@ -80,6 +83,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "by msgpack, which keeps all")
     p.add_argument("--adam-mu-dtype", choices=["float32", "bfloat16"], default="float32",
                    help="storage dtype of Adam's first moment")
+    p.add_argument("--fused-steps", type=int, default=0,
+                   help="train steps a dispatch, as one CUDA graph on a card (0 = eager steps)")
     p.add_argument("--device", default="cuda", help="torch device (cuda, cuda:1, cpu)")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="write a torch.profiler trace of one steady epoch")
@@ -100,7 +105,8 @@ def prepare(args):
     cfg = PretrainConfig(
         mask_ratio=args.mask_ratio, lr=args.lr, weight_decay=args.wd,
         batch_size=args.batch_size, epochs=args.epochs, seed=args.seed,
-        checkpoint_every_steps=args.ckpt_every, checkpoint_backend=args.ckpt_backend,
+        checkpoint_every_steps=args.ckpt_every, fused_steps=args.fused_steps,
+        checkpoint_backend=args.ckpt_backend,
         ckpt_max_to_keep=args.ckpt_max_keep or None,
         adam_mu_dtype=None if args.adam_mu_dtype == "float32" else args.adam_mu_dtype)
     return source, index, model_config(args), cfg

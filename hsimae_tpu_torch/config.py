@@ -9,8 +9,10 @@ Port-owned copy of ``hsimae_tpu/config.py`` (``ModelConfig``, ``PRESETS``,
   inference path every encoder block goes through
   :func:`hsimae_tpu_torch.ops.fused_block.fused_encoder_block`, which takes
   the plain PyTorch version only for tensors on the CPU;
-* ``PretrainConfig`` has no ``fused_steps`` (the TPU ``lax.scan`` dispatch
-  path); ``checkpoint_backend`` keeps the JAX names, so a JAX command line
+* ``PretrainConfig.fused_steps`` keeps its JAX meaning (K train steps a
+  dispatch): on a card the K steps run as one captured CUDA graph
+  (:func:`hsimae_tpu_torch.train.pretrain.make_fused_pretrain_chunk`);
+  ``checkpoint_backend`` keeps the JAX names, so a JAX command line
   carries over, but no orbax is used: ``"msgpack"`` is the port's
   synchronous ``ckpt_{step}.pt`` files, ``"orbax"`` the background writer
   with retention of :mod:`hsimae_tpu_torch.checkpoints.async_io`;
@@ -150,6 +152,10 @@ class PretrainConfig:
     checkpoint_backend: str = "msgpack"
     # checkpoints the "orbax" backend keeps on disk (None = keep all)
     ckpt_max_to_keep: Optional[int] = 3
+    # train steps a dispatch (0 = the eager step loop): the epoch is padded
+    # (wrapping) to whole chunks of K steps, each one CUDA graph replay on a
+    # card (train/pretrain.py::make_fused_pretrain_chunk)
+    fused_steps: int = 0
 
 
 @dataclasses.dataclass(frozen=True)

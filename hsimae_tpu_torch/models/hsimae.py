@@ -194,6 +194,11 @@ class HSIMAE(nn.Module):
             self._kernel_params[(name, dtype)] = hit
         return hit[1]
 
+    def forget_kernel_params(self) -> None:
+        """Drop the kernel weights built so far: for weights changed in place
+        without a version-counter bump (a CUDA graph replay of train steps)."""
+        self._kernel_params.clear()
+
     @contextlib.contextmanager
     def given_kernel_weights(self, weights: dict):
         """Within this context the encoder stacks on the kernel path take

@@ -114,7 +114,8 @@ def make_mesh(data: int = -1, model: int = 1, device_type: Optional[str] = None)
     """A ``DeviceMesh`` of shape ``(data, model)`` over the whole process
     group, dims named ``("data", "model")``; ``data=-1`` takes the ranks
     ``model`` leaves. ``device_type`` defaults to the type of the device
-    :func:`init_distributed` chose (else ``cuda`` when a card is present)."""
+    :func:`init_distributed` chose, else to the process group's backend's
+    (``nccl``: cuda, ``gloo``: cpu)."""
     from torch.distributed.device_mesh import init_device_mesh
 
     n = world_size()
@@ -126,7 +127,7 @@ def make_mesh(data: int = -1, model: int = 1, device_type: Optional[str] = None)
         raise ValueError(f"mesh {data}x{model} does not cover the {n} ranks")
     if device_type is None:
         device_type = _DEVICE.type if _DEVICE is not None else (
-            "cuda" if torch.cuda.is_available() else "cpu")
+            "cuda" if dist.get_backend() == "nccl" else "cpu")
     return init_device_mesh(device_type, (data, model), mesh_dim_names=("data", "model"))
 
 

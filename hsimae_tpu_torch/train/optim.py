@@ -18,7 +18,9 @@ and of the two optax optimizers the baseline harness uses
   ``lr * wd * p`` added to the Adam direction, ``eps`` outside the square
   root, bias correction, the first moment optionally stored in bfloat16.
   Update ``k`` (``k`` updates already applied) runs at ``sched(k)``: the
-  caller sets each group's ``lr`` before each step.
+  caller sets each group's ``lr`` before each step. :meth:`AdamW.step_from`
+  is the same update with the rate and the bias corrections read from
+  tensors on the device, so a CUDA graph can capture it.
 * :class:`RMSprop` has ``optax.rmsprop(lr, momentum=m)``'s arithmetic,
   which is not ``torch.optim.RMSprop``'s.
 """
@@ -98,16 +100,37 @@ class AdamW:
                    for g in self.param_groups]
 
     def zero_grad(self) -> None:
+        """Drop every gradient: the next backward allocates new ones (under
+        a CUDA graph capture, in the graph's memory pool)."""
         for g in self.param_groups:
             for p in g["params"]:
                 p.grad = None
 
+    def bias_corrections(self, k: int) -> Tuple[float, float]:
+        """``(1 - b1^k, 1 - b2^k)``, the bias corrections of update ``k``
+        (counted from 1)."""
+        return 1.0 - self.b1 ** k, 1.0 - self.b2 ** k
+
     @torch.no_grad()
     def step(self) -> None:
         """One update of every parameter that has a gradient."""
-        b1, b2 = self.b1, self.b2
         k = self.count + 1
-        bc1, bc2 = 1.0 - b1 ** k, 1.0 - b2 ** k
+        self._update(*self.bias_corrections(k))
+        self.count = k
+
+    @torch.no_grad()
+    def step_from(self, lr: torch.Tensor, bc1: torch.Tensor, bc2: torch.Tensor) -> None:
+        """The update of :meth:`step` with the rate and the two bias
+        corrections read from 0-d float32 tensors on the parameters'
+        device, each group at ``lr`` times its ``lr_scale``: a CUDA graph
+        that captures it takes new values from those tensors at each
+        replay. ``count`` is the caller's to advance."""
+        self._update(bc1, bc2, lr)
+
+    def _update(self, bc1, bc2, lr: Optional[torch.Tensor] = None) -> None:
+        """The update, with ``bc1``/``bc2`` floats or 0-d tensors; without
+        ``lr`` each group runs at its ``lr``."""
+        b1, b2 = self.b1, self.b2
         for g, mus, nus in zip(self.param_groups, self.mu, self.nu):
             live = [i for i, p in enumerate(g["params"]) if p.grad is not None]
             if not live:
@@ -130,11 +153,14 @@ class AdamW:
             torch._foreach_div_(upd, denom)
             if g["weight_decay"]:
                 torch._foreach_add_(upd, params, alpha=g["weight_decay"])
-            torch._foreach_add_(params, upd, alpha=-g["lr"])
+            if lr is None:
+                torch._foreach_add_(params, upd, alpha=-g["lr"])
+            else:
+                torch._foreach_mul_(upd, lr if g["lr_scale"] == 1.0 else lr * g["lr_scale"])
+                torch._foreach_sub_(params, upd)
             if mu is not stored_mu:
                 for dst, src in zip(stored_mu, mu):
                     dst.copy_(src)
-        self.count = k
 
     def state_dict(self, cpu: bool = True) -> Dict:
         """Moments by parameter name (CPU copies; with ``cpu=False`` the

@@ -19,6 +19,12 @@ Counterpart of ``make_pretrain_step`` and ``run_pretraining`` in
   resume that finds only the other backend's checkpoints raises;
 * with ``profile_dir``, the second epoch of the call is traced with
   ``torch.profiler`` (the first holds the warm-up);
+* with ``cfg.fused_steps = K`` (``--fused-steps``), the counterpart of the
+  JAX package's ``lax.scan`` chunk: the epoch is padded (wrapping) to whole
+  chunks of K batches, each trained by :func:`make_fused_pretrain_chunk`
+  (one bulk gather, K steps captured once per kept-grid shape as one CUDA
+  graph and replayed); the wrapped duplicates train at full weight, as in
+  the JAX package, and the schedule counts the padded steps;
 * data parallelism: under a process group (``torch.distributed.run``, or with
   a ``mesh``), the global batch is padded to a multiple of the data axis
   and every rank gathers and trains its contiguous rows of it. Every rank
@@ -38,10 +44,12 @@ from __future__ import annotations
 import os
 import random as _pyrandom
 import time
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.utils import _pytree as pytree
 
 from hsimae_tpu_torch.checkpoints.async_io import AsyncCheckpointer, checkpoint_steps
 from hsimae_tpu_torch.checkpoints.io import (
@@ -56,15 +64,22 @@ from hsimae_tpu_torch.data.pipeline import (
     augment_flips,
     batch_indices,
     draw_flips,
+    gather_multiscene,
 )
 from hsimae_tpu_torch.models.hsimae import HSIMAE, DropKeep, build_hsimae
-from hsimae_tpu_torch.models.masking import GridMask, group_by_shape, spatial_spectral_mask
+from hsimae_tpu_torch.models.masking import (
+    GridMask,
+    choose_grid_shape,
+    group_by_shape,
+    spatial_spectral_mask,
+)
 from hsimae_tpu_torch.parallel.mesh import (
     all_reduce_grads,
     barrier,
     data_size,
     default_mesh,
     is_main_process,
+    local_tensor,
     mesh_slice,
     pad_to_multiple,
     replicate,
@@ -168,6 +183,217 @@ def make_pretrain_step(model: HSIMAE, optimizer: AdamW, sched: Callable[[int], f
     return step
 
 
+def _stack_draws(draws: Sequence[PretrainDraws], device) -> PretrainDraws:
+    """K steps' draws as one :class:`PretrainDraws` of ``[K, ...]`` tensors
+    on ``device`` (None stays None)."""
+    leaves = [pytree.tree_flatten(d) for d in draws]
+    spec = leaves[0][1]
+    stacked = [None if ts[0] is None else torch.stack(ts).to(device)
+               for ts in zip(*(ls for ls, _ in leaves))]
+    return pytree.tree_unflatten(stacked, spec)
+
+
+def _draws_at(draws: PretrainDraws, i) -> PretrainDraws:
+    """Step ``i`` (an index or a slice) of stacked draws."""
+    return pytree.tree_map(lambda t: None if t is None else t[i], draws)
+
+
+class FusedPretrainChunk:
+    """K whole train steps a call: the counterpart of the JAX package's
+    ``make_fused_pretrain_chunk`` (one ``lax.scan`` dispatch). Made by
+    :func:`make_fused_pretrain_chunk`; ``capture_seconds`` holds the
+    seconds each ``(len_t, len_l, K)`` took to capture (warm-up included)."""
+
+    def __init__(self, model: HSIMAE, optimizer: AdamW, sched: Callable[[int], float],
+                 source: MultiScenePatchSource, seed: int = 0, flip_augment: bool = True,
+                 mesh=None):
+        self.model, self.optimizer, self.sched = model, optimizer, sched
+        self.source, self.seed, self.flip_augment, self.mesh = source, seed, flip_augment, mesh
+        self.capture_seconds: Dict[Tuple[int, int, int], float] = {}
+        # per (len_t, len_l, K): (graph, static draws, static loss denominators, mean loss);
+        # the patches and the rates of a K are shared by its graphs, and every graph
+        # draws from one memory pool
+        self._graphs: Dict[Tuple[int, int, int], tuple] = {}
+        self._shared: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self._pool = None
+        self._addresses: Optional[List[int]] = None
+
+    def __call__(self, locs_chunk, len_t: int, len_l: int,
+                 draws: Optional[Sequence[PretrainDraws]] = None) -> torch.Tensor:
+        """Train on the batches ``locs_chunk [K, B, 3]`` (rows of the cut
+        index) -> the K steps' mean loss, on the device. ``draws``: the K
+        steps' :class:`PretrainDraws` (of the global batch), else drawn as
+        the eager step draws them. ``optimizer.count`` advances by K."""
+        k = int(locs_chunk.shape[0])
+        imgs, drawn, rates, denoms = self._inputs(locs_chunk, len_t, len_l, draws)
+        if imgs.is_cuda:
+            loss = self._replay((len_t, len_l, k), imgs, drawn, rates, denoms)
+        else:  # the plain version: the same steps, one after another
+            loss = self._steps(imgs, drawn, rates, denoms, len_t, len_l)
+        self.optimizer.count += k
+        return loss
+
+    def _inputs(self, locs_chunk, len_t: int, len_l: int,
+                draws: Optional[Sequence[PretrainDraws]]):
+        """(patches [K, b, ps, ps, C] of this rank's rows, the draws stacked
+        over K (this rank's rows), rates ``[3, K]`` (rate, bias corrections),
+        the global batches' loss denominators [K] under a mesh, else None)."""
+        src, model, mesh = self.source, self.model, self.mesh
+        dev = src.device
+        k, n = int(locs_chunk.shape[0]), int(locs_chunk.shape[1])
+        count = self.optimizer.count
+        rows = mesh_slice(n, mesh)
+        locs = torch.as_tensor(locs_chunk, dtype=torch.int64).to(dev)[:, rows]
+        # one bulk gather of the chunk's patches, as the JAX chunk gathers before its scan
+        imgs = gather_multiscene(src._flat, src._widths, src._bases, src._min, src._max,
+                                 locs.reshape(-1, 3), src.patch_size)
+        imgs = imgs.reshape(k, -1, *imgs.shape[1:])
+        if draws is None:
+            draws = [draw_pretrain(model, n, len_t, len_l,
+                                   step_generator(self.seed, count + i, dev), dev,
+                                   self.flip_augment) for i in range(k)]
+        denoms = None
+        if mesh is not None:
+            denoms = torch.stack([d.grid.mask.sum() for d in draws]).to(dev)
+            draws = [local_pretrain_draws(d, n, rows) for d in draws]
+        bcs = [self.optimizer.bias_corrections(count + i + 1) for i in range(k)]
+        rates = torch.tensor([[self.sched(count + i) for i in range(k)],
+                              [b[0] for b in bcs], [b[1] for b in bcs]], dtype=torch.float32)
+        if dev.type == "cuda":  # pinned: the upload does not wait for the card
+            rates = rates.pin_memory().to(dev, non_blocking=True)
+        return imgs, _stack_draws(draws, dev), rates, denoms
+
+    def _steps(self, imgs: torch.Tensor, draws: PretrainDraws, rates: torch.Tensor,
+               denoms: Optional[torch.Tensor], len_t: int, len_l: int) -> torch.Tensor:
+        """The K steps of :func:`make_pretrain_step` on the stacked inputs,
+        the update through :meth:`AdamW.step_from` -> the mean loss."""
+        model, opt = self.model, self.optimizer
+        if not model.training:
+            model.train()
+        losses = []
+        for i in range(imgs.shape[0]):
+            d, x = _draws_at(draws, i), imgs[i]
+            if d.flips is not None:
+                x = augment_flips(x, flips=d.flips)
+            loss = model.forward_pretrain(x, len_t, len_l, None, d.grid, d.drop_keep,
+                                          loss_denom=None if denoms is None else denoms[i])[0]
+            opt.zero_grad()
+            loss.backward()
+            if self.mesh is not None:
+                loss, = all_reduce_grads(model, self.mesh, loss)
+            opt.step_from(rates[0, i], rates[1, i], rates[2, i])
+            losses.append(loss.detach())
+        return torch.stack(losses).mean()
+
+    def _state(self) -> List[torch.Tensor]:
+        """The tensors the steps update in place: parameters and moments."""
+        opt = self.optimizer
+        return ([local_tensor(p) for g in opt.param_groups for p in g["params"]]
+                + [m for ms in (*opt.mu, *opt.nu) for m in ms])
+
+    def _replay(self, key: Tuple[int, int, int], imgs: torch.Tensor, draws: PretrainDraws,
+                rates: torch.Tensor, denoms: Optional[torch.Tensor]) -> torch.Tensor:
+        if key not in self._graphs:
+            self._capture(key, imgs, draws, rates, denoms)
+        if [t.data_ptr() for t in self._state()] != self._addresses:
+            raise RuntimeError("a parameter or an optimizer moment was replaced after the fused "
+                               "chunk's CUDA graph was captured; restore state in place "
+                               "(load_state_dict copies), before the first chunk")
+        graph, static_draws, static_denoms, mean = self._graphs[key]
+        static_imgs, static_rates = self._shared[key[2]]
+        static_imgs.copy_(imgs)
+        static_rates.copy_(rates)
+        for dst, src in zip(pytree.tree_leaves(static_draws), pytree.tree_leaves(draws)):
+            if dst is not None:
+                dst.copy_(src)
+        if denoms is not None:
+            static_denoms.copy_(denoms)
+        graph.replay()
+        # the replay changed the weights without bumping their version counters
+        self.model.forget_kernel_params()
+        return mean.clone()  # the next replay of another graph may reuse the pool's slot
+
+    def _capture(self, key: Tuple[int, int, int], imgs: torch.Tensor, draws: PretrainDraws,
+                 rates: torch.Tensor, denoms: Optional[torch.Tensor]) -> None:
+        """Capture the K steps of ``key`` as one CUDA graph reading static
+        copies of the inputs, after one warm-up step on a side stream whose
+        updates are undone (the parameters and moments are copied back in
+        place). Raises if the capture fails."""
+        len_t, len_l, k = key
+        if self.mesh is not None:
+            backend = dist.get_backend(self.mesh.get_group("data"))
+            if backend != "nccl":
+                raise RuntimeError(
+                    f"the fused chunk captures its gradient all-reduce in a CUDA graph, and "
+                    f"{backend} collectives cannot be captured (they pass through the host); "
+                    "run the data-parallel fused path over NCCL (a card a rank) or use "
+                    "fused_steps=0")
+        t0 = time.perf_counter()
+        if k not in self._shared:
+            self._shared[k] = (imgs.clone(), rates.clone())
+        static_imgs, static_rates = self._shared[k]
+        static_draws = pytree.tree_map(lambda t: None if t is None else t.clone(), draws)
+        static_denoms = None if denoms is None else denoms.clone()
+        state = self._state()
+        saved = [t.detach().clone() for t in state]  # no autograd node kept alive
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            self._steps(static_imgs[:1], _draws_at(static_draws, slice(0, 1)),
+                        static_rates[:, :1], None if denoms is None else static_denoms[:1],
+                        len_t, len_l)
+        torch.cuda.current_stream().wait_stream(side)
+        with torch.no_grad():
+            for t, v in zip(state, saved):
+                t.copy_(v)
+        del saved
+        self.optimizer.zero_grad()
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        # thread-local: the background checkpoint writer may wait on an event meanwhile
+        with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
+            mean = self._steps(static_imgs, static_draws, static_rates, static_denoms,
+                               len_t, len_l)
+        self.optimizer.zero_grad()
+        torch.cuda.synchronize()
+        self._graphs[key] = (graph, static_draws, static_denoms, mean)
+        if self._addresses is None:
+            self._addresses = [t.data_ptr() for t in state]
+        self.capture_seconds[key] = time.perf_counter() - t0
+
+
+def make_fused_pretrain_chunk(model: HSIMAE, optimizer: AdamW, sched: Callable[[int], float],
+                              source: MultiScenePatchSource, seed: int = 0,
+                              flip_augment: bool = True, mesh=None) -> FusedPretrainChunk:
+    """Returns ``chunk(locs_chunk [K, B, 3], len_t, len_l, draws=None) ->
+    mean_loss``: K train steps on the K batches of cut-index rows, equal to
+    K :func:`make_pretrain_step` calls on the same batches (the JAX
+    package's ``make_fused_pretrain_chunk``, one dispatch a chunk).
+
+    * One bulk gather of the chunk's ``K * B`` patches through ``source``'s
+      flat scene buffer.
+    * Step ``i`` draws what the eager step draws at update ``count + i``
+      (:func:`step_generator` at ``(seed, count + i)``, :func:`draw_pretrain`),
+      or takes ``draws[i]``. The draws are made outside the graph and
+      copied into its static buffers (the JAX chunk's ``fold_in(base, i)``
+      stream has no torch counterpart).
+    * On a CUDA device the K steps (flips, ``forward_pretrain``, backward,
+      :meth:`AdamW.step_from` at ``sched(count + i)``) are captured once per
+      ``(len_t, len_l, K)`` as one ``torch.cuda.CUDAGraph``, every graph in
+      one memory pool; a chunk is then one replay. A failed capture raises.
+      Nothing may rebind a parameter or a moment after a capture (a replay
+      checks). On the CPU the same steps run in a loop: the plain version.
+    * Under a ``mesh`` each rank gathers its rows of each global batch
+      (:func:`mesh_slice`), takes its rows of the global batch's draws and
+      divides by the global batch's sum of weights; the gradient
+      all-reduce is captured with the steps, which NCCL allows and gloo
+      does not (raises on a card).
+
+    The mean loss stays on the device; ``optimizer.count`` advances by K."""
+    return FusedPretrainChunk(model, optimizer, sched, source, seed, flip_augment, mesh)
+
+
 def _profiler(profile_dir: str, device) -> torch.profiler.profile:
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.device(device).type == "cuda":
@@ -191,8 +417,10 @@ def run_pretraining(
 ):
     """Epoch loop over the cut index ``locs`` -> (model, history) with
     ``history = {"epoch_loss": [...], "patches_per_sec": [...],
-    "checkpoint_seconds": [...]}`` for the epochs this call ran (the last:
-    the step thread's time in each checkpoint save). With ``workdir``:
+    "capture_seconds": [...], "checkpoint_seconds": [...]}`` for the epochs
+    this call ran (``capture_seconds``: each epoch's seconds capturing the
+    fused chunk's CUDA graphs, 0 without ``cfg.fused_steps``; the last: the
+    step thread's time in each checkpoint save). With ``workdir``:
     checkpoints every ``cfg.checkpoint_every_steps`` steps (at epoch ends)
     through ``cfg.checkpoint_backend``, resume from the latest when
     ``resume``, and ``params_final.pt`` + ``train_log.npy`` at the end.
@@ -213,6 +441,10 @@ def run_pretraining(
     n = len(locs)
     bs = pad_to_multiple(min(cfg.batch_size, n), data_size(mesh))
     steps_per_epoch = int(np.ceil(n / bs))
+    k = min(cfg.fused_steps, steps_per_epoch)
+    if k > 0:
+        # whole chunks of k steps an epoch: the schedule and the resume count the padding
+        steps_per_epoch = int(np.ceil(steps_per_epoch / k)) * k
     total_steps = steps_per_epoch * cfg.epochs
     optimizer, sched = pretrain_optimizer(
         model, cfg.lr, cfg.weight_decay, total_steps, warmup_frac=cfg.warmup_frac,
@@ -253,10 +485,14 @@ def run_pretraining(
     if mesh is not None:
         replicate(model, mesh, optimizer)
     logger = logger or (MetricLogger(workdir) if main else MetricLogger(echo=False))
-    step_fn = make_pretrain_step(model, optimizer, sched, seed=cfg.seed, mesh=mesh)
+    if k > 0:
+        chunk_fn = make_fused_pretrain_chunk(model, optimizer, sched, source, seed=cfg.seed,
+                                             mesh=mesh)
+    else:
+        step_fn = make_pretrain_step(model, optimizer, sched, seed=cfg.seed, mesh=mesh)
     own = mesh_slice(bs, mesh)  # this rank's rows of every batch
     t_size, l_size = model_cfg.t_size, model_cfg.l_size
-    epoch_losses, rates, ckpt_seconds = [], [], []
+    epoch_losses, rates, capture_seconds, ckpt_seconds = [], [], [], []
     end_epoch = cfg.epochs
     if stop_after_epochs is not None:
         end_epoch = min(end_epoch, start_epoch + stop_after_epochs)
@@ -275,22 +511,38 @@ def run_pretraining(
             ep_rng = np.random.default_rng(cfg.seed + epoch)
             shape_rng = _pyrandom.Random(cfg.seed * 1000 + epoch)
             ep_steps, step_losses = 0, []
+            captured = sum(chunk_fn.capture_seconds.values()) if k > 0 else 0.0
             t0 = time.perf_counter()
-            batches = list(batch_indices(n, bs, rng=ep_rng))
-            rows = torch.as_tensor(np.stack([c for c, _ in batches])).to(device)  # one upload
-            for (len_t, len_l), group in group_by_shape(range(len(batches)), t_size, l_size,
-                                                         cfg.mask_ratio, shape_rng).items():
-                for i in group:
-                    valid = batches[i][1]
-                    # the wrapped duplicates of the padded tail weigh 0
-                    w = None if valid.all() else torch.as_tensor(valid, dtype=torch.float32,
-                                                                 device=device)
-                    loss = step_fn(source.gather(locs_dev[rows[i][own]]), len_t, len_l, w)
-                    ep_steps += 1
-                    step_losses.append(loss)
-                    if ep_steps % cfg.log_every == 0:
+            if k > 0:
+                # the shuffled epoch padded (wrapping) to whole [k, bs] chunks; the
+                # duplicates train at full weight, as in the JAX package
+                n_chunks = steps_per_epoch // k
+                order = np.resize(ep_rng.permutation(n), n_chunks * k * bs)
+                rows = torch.as_tensor(order.reshape(n_chunks, k, bs)).to(device)  # one upload
+                for ci in range(n_chunks):
+                    len_t, len_l = choose_grid_shape(t_size, l_size, cfg.mask_ratio, shape_rng)
+                    loss = chunk_fn(locs_dev[rows[ci]], len_t, len_l)
+                    ep_steps += k
+                    step_losses.append(loss * k)
+                    if (ci + 1) * k % cfg.log_every < k:
                         logger.log(step=optimizer.count, loss=float(loss),
                                    lr=sched(optimizer.count - 1))
+            else:
+                batches = list(batch_indices(n, bs, rng=ep_rng))
+                rows = torch.as_tensor(np.stack([c for c, _ in batches])).to(device)  # one upload
+                for (len_t, len_l), group in group_by_shape(range(len(batches)), t_size, l_size,
+                                                             cfg.mask_ratio, shape_rng).items():
+                    for i in group:
+                        valid = batches[i][1]
+                        # the wrapped duplicates of the padded tail weigh 0
+                        w = None if valid.all() else torch.as_tensor(valid, dtype=torch.float32,
+                                                                     device=device)
+                        loss = step_fn(source.gather(locs_dev[rows[i][own]]), len_t, len_l, w)
+                        ep_steps += 1
+                        step_losses.append(loss)
+                        if ep_steps % cfg.log_every == 0:
+                            logger.log(step=optimizer.count, loss=float(loss),
+                                       lr=sched(optimizer.count - 1))
             ep_loss = float(torch.stack(step_losses).sum())  # one sync an epoch
             dt = time.perf_counter() - t0
             if prof is not None:
@@ -301,6 +553,8 @@ def run_pretraining(
             pps = ep_steps * bs / dt
             epoch_losses.append(mean_loss)
             rates.append(pps)
+            capture_seconds.append(
+                sum(chunk_fn.capture_seconds.values()) - captured if k > 0 else 0.0)
             logger.log(epoch=epoch, epoch_loss=mean_loss, patches_per_sec=pps)
             if main:
                 print(f"[pretrain] epoch {epoch}: loss {mean_loss:.4f}  {pps:,.0f} patches/s")
@@ -324,4 +578,4 @@ def run_pretraining(
         np.save(f"{workdir}/train_log.npy", np.array([epoch_losses, []], dtype=object))
     barrier()
     return model, {"epoch_loss": epoch_losses, "patches_per_sec": rates,
-                   "checkpoint_seconds": ckpt_seconds}
+                   "capture_seconds": capture_seconds, "checkpoint_seconds": ckpt_seconds}

@@ -66,9 +66,8 @@ def test_eval_config_default():
     assert tcfg.EvalConfig().batch_size == jcfg.EvalConfig().batch_size == 4096
 
 
-# per config, the JAX fields the port leaves out by design: fused_steps is the
-# TPU's lax.scan dispatch path
-DROPPED_FIELDS = {"PretrainConfig": {"fused_steps"}}
+# per config, the JAX fields the port leaves out by design: none
+DROPPED_FIELDS = {}
 
 
 @pytest.mark.parametrize("name", ["EvalConfig", "ProtocolConfig", "PretrainConfig", "MeshConfig"])

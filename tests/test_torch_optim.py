@@ -26,7 +26,7 @@ from hsimae_tpu_torch import config as tcfg
 from hsimae_tpu_torch.checkpoints.convert import from_jax_params
 from hsimae_tpu_torch.train import optim as to
 
-DROPPED = {"fused_steps"}  # the TPU's lax.scan dispatch path
+DROPPED = set()  # JAX fields the port leaves out: none
 
 
 def test_pretrain_config_fields_and_defaults():
