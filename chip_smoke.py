@@ -12,10 +12,11 @@ Phases, each of a fixed size; any failure exits non-zero:
    ``block_reference`` on the same seeded inputs, each route with the
    weights ``kernel_weights`` gives it: float32 at D 64 and 128 on the
    3xTF32 wgmma kernel (TF32 hi/lo pack), float32 at D 256 on the 3xTF32
-   D 256 kernel (its own hi/lo pack), bfloat16 on the bf16 wgmma kernel
-   (bf16 pack), at the HSIMAE-B shapes (M cut to 4096) plus D=64 and D=256
-   (float32 at D 256 also at S 64, the longest, and at an M whose last row
-   tile is partly filled); then, at the
+   D 256 kernel (its own hi/lo pack), bfloat16 at D 64 and 128 on the bf16
+   wgmma kernel (bf16 pack), bfloat16 at D 256 on the bf16 wgmma D 256
+   kernel (its own bf16 pack), at the HSIMAE-B shapes (M cut to 4096) plus
+   D=64 and D=256 (D 256 also at S 64, the longest, in both dtypes, and at
+   an M whose last row tile is partly filled); then, at the
    full batch-4096 shapes the main paths give the kernels (HSIMAE-B and
    HSIMAE-L, both dtypes), compared again and timed with CUDA events beside
    the plain version and the port's Block modules (cuBLAS products), one
@@ -38,8 +39,8 @@ Phases, each of a fixed size; any failure exits non-zero:
    s_depth 9), full width and depth: phases 4-6 again with ``--model
    HSIMAE-L`` on the same scene: float32 on the 3xTF32 D 256 kernel (21
    launches a batch, the others never; map against the Block modules),
-   bfloat16 on the wgmma kernel (21 a batch; map against
-   ``block_reference``), warm loops and ``max_memory_allocated``;
+   bfloat16 on the wgmma D 256 kernel (21 a batch, the others never; map
+   against ``block_reference``), warm loops and ``max_memory_allocated``;
 8. pretrain steps, card against CPU: three float32 HSIMAE-B steps (batch
    64, one seeded init, injected draws on both kept grids) on the card and
    the same three on the CPU; each loss within 1e-4 relative, the final
@@ -71,25 +72,26 @@ Phases, each of a fixed size; any failure exits non-zero:
    against the same three on the CPU, held like phase 8; c. the chain
    pretrain -> fine-tune -> full-scene eval through
    ``hsimae_tpu_torch.cli.finetune`` from phase 9's bf16 ``params_final.pt``,
-   bf16, 200 epochs, ``--eval``: finite losses, no kernel launch in the dual
+   bf16, 10 epochs (the paper's 200 cut to fit the time limit), ``--eval``:
+   finite losses, no kernel launch in the dual
    steps, 21 launches of the bf16 kernel per val batch and 126 in
    ``--eval`` (the others never), the ``--eval`` map against the same
    weights with every block as ``block_reference`` on >= 99.9% of pixels;
-   d. the same run in float32 for 20 epochs on ``fused_block_tf32x3`` only,
+   d. the same run in float32 for 10 epochs on ``fused_block_tf32x3`` only,
    the map against the Block modules. The runs' per-epoch logs go to
    ``chiprun_out/smoke_finetune_*.log``; the numbers are a synthetic
    scene's, not the paper's;
 13. the paper's protocol (HSIMAE-B, bf16, the phase-4 scene, from phase 9's
    bf16 ``params_final.pt``): a. ``hsimae_tpu_torch.cli.finetune
    --protocol`` with the lr grid cut to (1e-3, 1e-4), 1 selection seed and
-   2 test seeds, 20 epochs a run (cut from 4 lrs x 3 seeds + 5 seeds and
+   2 test seeds, 10 epochs a run (cut from 4 lrs x 3 seeds + 5 seeds and
    200 epochs to fit the time limit): 4 fine-tunes, 21 launches of the
-   bf16 kernel a val batch and 126 a test run's scene evaluation, 1,932 in
+   bf16 kernel a val batch and 126 a test run's scene evaluation, 1,092 in
    all and none of the others; 4 records with the JAX package's keys in
    ``protocol_runs.jsonl``, ``best_lr`` in the grid, finite OA/AA/kappa in
    [0, 100]; ``memory_allocated`` may not grow by more than 64 MB across
    the protocol; b. the workdir copied, its record file cut to 3 records
-   and a torn line, and the same command again: exactly one fine-tune (546
+   and a torn line, and the same command again: exactly one fine-tune (336
    launches), the 3 records kept byte for byte, the same ``best_lr``, the
    re-run seed's metrics within 1 point of 13a's; c. the last test run's
    weights through ``cli.evaluate --samples-per-class 10 --seed <its seed>
@@ -106,7 +108,8 @@ Phases, each of a fixed size; any failure exits non-zero:
    int8``; int8 with bfloat16), buckets 1, 64, 1024, platforms cpu and cuda;
    the int8 artifact under 0.6x the float32 one's bytes; c. each artifact
    loaded in a fresh process where ``hsimae_tpu_torch.models`` cannot be
-   imported and asked for n = 1, 63, 64, 65, 1024 and 1500 patches: 21
+   imported (started after its export, so that the four load at once), then,
+   alone on the card, asked for n = 1, 63, 64, 65, 1024 and 1500 patches: 21
    launches of the route's kernel a program call (1500: two calls), none of
    the others, no kernel pack built in a request, logits within the kernel's
    tolerance of the live model on the same (dequantized) weights; d.
@@ -130,11 +133,14 @@ Phases, each of a fixed size; any failure exits non-zero:
    within 1e-3 of phase 9's; e. ``cli.evaluate --dp 2`` on the phase-4
    scene in both dtypes: each rank 126 launches of the dtype's kernel and
    none of the others, the map against phases 4/5 on >= 99.9% of pixels;
-   f. ``cli.finetune`` on 2 ranks (bf16, 20 epochs, ``--eval``, from phase
+   f. ``cli.finetune`` on 2 ranks (bf16, 10 epochs, ``--eval``, from phase
    9's ``params_final.pt``): no launch in a dual step, 21 a val batch
    share, 126 a rank in ``--eval``, the map against ``block_reference`` on
    the same weights on >= 99.9% of pixels. Logs in
-   ``chiprun_out/smoke_dp*.log`` and ``smoke_nccl.log``;
+   ``chiprun_out/smoke_dp*.log`` and ``smoke_nccl.log``. The two rank jobs
+   (a-c and f; d, then 18c) run in the background, beside each other and
+   beside e: every check of this phase is of values, and its speeds are
+   not claims;
 16. the baseline zoo (``hsimae_tpu_torch.models.baselines``, the bench
    harness and ``cli.benchmark``; plain PyTorch ops, no kernel of ours):
    a. each of the ten nets at its registry widths (PaviaU: 103 bands, 10
@@ -153,9 +159,9 @@ Phases, each of a fixed size; any failure exits non-zero:
    element within 1e-4 of its float64 window's maximum; c.
    ``hsimae_tpu_torch.cli.benchmark.main`` on the phase-4 scene (145x145x200,
    16 classes), all ten nets, 10 samples a class, lr grid 1e-3, 1 selection
-   seed, 2 test seeds, 10 epochs: its report keys and OA; then one 10-epoch
+   seed, 2 test seeds, 5 epochs: its report keys and OA; then one 5-epoch
    ``train_baseline`` and one ``evaluate_baseline`` of each net on that
-   scene, outside the CLI: the train-step ms (epochs 1-9), the full-scene
+   scene, outside the CLI: the train-step ms (epochs 1-4), the full-scene
    pixels/s, every logit of the scene finite; 0 fused-block launches over
    the CLI run and these;
 17. SVM-RBF and the quickstart (no kernel of ours in the SVM; the
@@ -194,13 +200,16 @@ Phases, each of a fixed size; any failure exits non-zero:
    device's busy share in a ``torch.profiler`` trace of one bf16 chunk
    (the CLI runs give the capture seconds of each kept grid); c. the fused CLI at one NCCL
    rank under ``torch.distributed.run`` (phase 15d's route; its all-reduce
-   is captured), epoch losses within 1e-3 of 18b's. No block kernel
+   is captured), epoch losses within 1e-3 of 18b's; it runs in 15d's job,
+   after 15d, and is read here. No block kernel
    launches anywhere in phase 18;
 7. (last) a ``kernels`` JSON line, with each kernel's launches on each path
    (counts set to 0 just before the path), the card's name and power limit,
    then ``{"ok": true, "device": {...}}``.
 
-Phases run in the order 1-6, 11, 8-10, 12, 13, 14, 15, 18, 16, 17, 7.
+Phases run in the order 1-6, 11, 8-10, 12, 13, 14, 15 (18c in its job), 18,
+16, 17, 7. Each run is cut in depth (epochs, seeds, grids) so that the
+whole takes about ten minutes on one H100.
 """
 
 from __future__ import annotations
@@ -242,7 +251,7 @@ CHECK_SHAPES = [  # (M, S, D, hidden); M cut to 4096 rows
     (4096, 9, 64, 172), (4096, 36, 256, 684),
     (4093, 9, 256, 684),  # 585 row tiles of 7 sequences, the last holding 5
 ]
-F32_CHECK_SHAPES = [(449, 64, 256, 684)]  # the longest S at D 256 (the bf16 kernel takes 40)
+LONGEST_CHECK_SHAPES = [(449, 64, 256, 684)]  # the longest S at D 256, both dtypes
 TOL = {"float32": 2e-5, "bfloat16": 5e-2}  # |kernel - ref| <= tol * max(1, |ref|)
 # the kernels, by route (stream dtype and width): name -> (dtype, source, launch counter)
 KERNELS = {
@@ -253,11 +262,16 @@ KERNELS = {
                                    "TF32X3_D256_LAUNCHES"),
     "fused_block_wgmma": ("bfloat16", "hsimae_tpu_torch/ops/csrc/fused_block_wgmma.cu",
                           "WGMMA_LAUNCHES"),
+    "fused_block_wgmma_d256": ("bfloat16", "hsimae_tpu_torch/ops/csrc/fused_block_wgmma_d256.cu",
+                               "WGMMA_D256_LAUNCHES"),
 }
+WIDTHS = {"fused_block_tf32x3": (64, 128), "fused_block_tf32x3_d256": (256,),
+          "fused_block_wgmma": (64, 128), "fused_block_wgmma_d256": (256,)}
 TF32X3_KERNELS = ("fused_block_tf32x3", "fused_block_tf32x3_d256")  # read against 3xTF32
 MAIN_KERNEL = {"float32": "fused_block_tf32x3", "bfloat16": "fused_block_wgmma"}  # HSIMAE-B
 MAIN_KERNELS = {"HSIMAE-B": MAIN_KERNEL,
-                "HSIMAE-L": {"float32": "fused_block_tf32x3_d256", "bfloat16": "fused_block_wgmma"}}
+                "HSIMAE-L": {"float32": "fused_block_tf32x3_d256",
+                             "bfloat16": "fused_block_wgmma_d256"}}
 
 SCENE_ARGV = ["--synthetic", "--synthetic-size", "145", "--synthetic-bands", "200",
               "--synthetic-classes", "16", "--num-classes", "17",
@@ -306,17 +320,18 @@ FINETUNE_ARGV = ["--synthetic", "--synthetic-size", "145", "--synthetic-bands", 
                  "--samples-per-class", "10", "--batch-size", "32", "--mask-ratio", "0.8",
                  "--lamda", "10", "--lr", "1e-3", "--wd", "5e-3", "--drop-path", "0.2",
                  "--eval", "--device", "cuda"]
-FINETUNE_EPOCHS = {"bfloat16": 200, "float32": 20}
+FINETUNE_EPOCHS = {"bfloat16": 10, "float32": 10}  # 12c, 12d (the paper's 200, cut to fit)
 
 # phase 13: the protocol on the phase-4 scene, cut to fit the time limit: 2 lrs x 1
-# selection seed + 2 test seeds at 20 epochs (the paper's: 4 lrs x 3 seeds + 5 seeds, 200)
-PROTOCOL_LRS, PROTOCOL_EPOCHS = (1e-3, 1e-4), 20
+# selection seed + 2 test seeds at 10 epochs (the paper's: 4 lrs x 3 seeds + 5 seeds, 200)
+PROTOCOL_LRS, PROTOCOL_EPOCHS = (1e-3, 1e-4), 10
 PROTOCOL_ARGV = [a for a in FINETUNE_ARGV if a != "--eval"] + [
     "--protocol", "--lr-grid", *map(str, PROTOCOL_LRS), "--selection-seeds", "1",
     "--test-seeds", "2", "--epochs", str(PROTOCOL_EPOCHS)]
 PROTOCOL_RUNS = 4  # 2 selection runs, 2 test runs
-PROTOCOL_LAUNCHES = 4 * 20 * 21 + 2 * 126  # val batches, then the test runs' scene batches
-RESUME_LAUNCHES = 20 * 21 + 126  # the one test run left
+# val batches (one an epoch), then the test runs' scene batches
+PROTOCOL_LAUNCHES = PROTOCOL_RUNS * PROTOCOL_EPOCHS * 21 + 2 * 126
+RESUME_LAUNCHES = PROTOCOL_EPOCHS * 21 + 126  # the one test run left
 PROTOCOL_RECORD_KEYS = {"select": {"stage", "lr", "seed", "spc", "val_mean3"},
                         "test": {"stage", "lr", "seed", "spc", "oa", "aa", "kappa", "per_class"}}
 MAX_MEMORY_GROWTH = 64 << 20  # bytes left allocated on the card after the protocol
@@ -341,7 +356,7 @@ MAX_INT8_SIZE = 0.6  # the int8 artifact's bytes over the f32 one's, as JAX's te
 DP_RANKS = 2
 DP_STEP_VALID = 61  # 15a: phase 8's global batch of 64, its last 3 rows padding (weight 0)
 DP_UNLABELED = 44  # 15b: phase 12b's 43 unlabeled rows padded (wrapped) to a multiple of 2
-DP_FINETUNE_EPOCHS = 20  # 15f
+DP_FINETUNE_EPOCHS = 10  # 15f
 DP_SINGLE_RTOL = 1e-2  # 15c: epoch-1 loss against phase 9's single process, relative
 DP_EVAL_LAUNCHES = 6 * 21  # 15e/f: 6 scene batches of 4096, 2048 rows a rank, 21 a batch
 SCENE_LAUNCHES = 6 * 4 * 21  # 6 gathers of 4096, 4 calls of bucket 1024 each, 21 a call
@@ -355,10 +370,10 @@ ZOO_TOL = 1e-4  # logits, loss, parameters, buffers: |card - cpu| <= tol * max(1
 ZOO_GRAD_FLOOR, ZOO_GRAD_K = 1e-3, 10.0
 ZOO_ARGV = ["--synthetic", "--synthetic-size", "145", "--synthetic-bands", "200",
             "--synthetic-classes", "16", "--samples-per-class", "10", "--lr-grid", "1e-3",
-            "--selection-seeds", "1", "--test-seeds", "2", "--epochs", "10",
+            "--selection-seeds", "1", "--test-seeds", "2", "--epochs", "5",
             "--scene-seed", "0", "--device", "cuda"]  # phase 4's scene
 ZOO_REPORT_KEYS = ["best_lr", "oa", "aa", "kappa", "per_seed_oa"]
-ZOO_TIMED_EPOCHS = 10  # 16c's timed run of each net: 2 steps an epoch, epoch 0 not timed
+ZOO_TIMED_EPOCHS = 5  # 16c's timed run of each net: 2 steps an epoch, epoch 0 not timed
 # phase 17: SVM-RBF on the phase-4 scene (cli.benchmark's first test seed), then the quickstart
 SVM_ARGV = ZOO_ARGV + ["--models", "SVM-RBF"]  # 10 labels a class, 2 test seeds
 SVM_DEC_TOL = 1e-6  # 17a: decision values, card against CPU, scaled by the problem's largest
@@ -395,7 +410,7 @@ from hsimae_tpu_torch.ops import fused_block as fb
 from hsimae_tpu_torch.serving import load_classifier
 
 art, xs, out, ns = sys.argv[1], sys.argv[2], sys.argv[3], json.loads(sys.argv[4])
-names = ("TF32X3_LAUNCHES", "TF32X3_D256_LAUNCHES", "WGMMA_LAUNCHES")
+names = ("TF32X3_LAUNCHES", "TF32X3_D256_LAUNCHES", "WGMMA_LAUNCHES", "WGMMA_D256_LAUNCHES")
 t0 = time.perf_counter()
 torch.cuda.init()
 torch.empty(1, device="cuda")
@@ -405,6 +420,8 @@ t0 = time.perf_counter()
 clf = load_classifier(art, device="cuda")
 torch.cuda.synchronize()
 load_s = time.perf_counter() - t0
+print("loaded", flush=True)
+sys.stdin.readline()  # the parent's go: the requests and timed calls run alone on the card
 builds = []
 real = fb.kernel_weights
 fb.kernel_weights = lambda *a: builds.append(1) or real(*a)
@@ -462,10 +479,10 @@ def random_block(d: int, hid: int, gen, device):
 
 def kernel_of(dname: str, d: int) -> str:
     """The kernel the wrapper launches for stream dtype ``dname`` at width d."""
-    from hsimae_tpu_torch.ops.fused_block import TF32X3_D
+    from hsimae_tpu_torch.ops.fused_block import TF32X3_D, WGMMA_WIDE_D
 
     if dname == "bfloat16":
-        return "fused_block_wgmma"
+        return "fused_block_wgmma_d256" if d == WGMMA_WIDE_D else "fused_block_wgmma"
     return "fused_block_tf32x3" if d in TF32X3_D else "fused_block_tf32x3_d256"
 
 
@@ -570,8 +587,9 @@ def bounds(kernel: str, m: int, s: int, d: int, hid: int, esize: int, w):
 
 
 def l2_weight_mb(kernel: str, m: int, s: int, d: int, w):
-    """Weight bytes a launch pulls from L2: the whole pack once per row tile."""
-    rows = 64 if kernel in TF32X3_KERNELS or d > 128 else 128
+    """Weight bytes a launch pulls from L2: the whole pack once per row tile
+    (64 rows for the float32 kernels, 128 for the bf16 ones)."""
+    rows = 64 if kernel in TF32X3_KERNELS else 128
     return -(-m // (rows // s)) * weight_bytes(w) / 1e6
 
 
@@ -1218,8 +1236,8 @@ def cli_protocol(smi_line: str, fb, hsimae_model, pretrained: Path, runs: Path,
     extrapolated = (FULL_PROTOCOL["runs"] * sum(sel_s) / 2 * FULL_PROTOCOL["epochs"] / epochs
                     + FULL_PROTOCOL["test_runs"] * test_extra)
     row = {"main_path": "cli.finetune --protocol", "model": "HSIMAE-B", "dtype": "bfloat16",
-           "cut": "lr grid (1e-3, 1e-4), 1 selection seed, 2 test seeds, 20 epochs a run; the "
-                  "paper's is 4 lrs x 3 seeds + 5 test seeds, 200 epochs",
+           "cut": f"lr grid (1e-3, 1e-4), 1 selection seed, 2 test seeds, {epochs} epochs a "
+                  "run; the paper's is 4 lrs x 3 seeds + 5 test seeds, 200 epochs",
            "runs": len(rec["run_seconds"]), "epochs": epochs, "run_wall_s": rec["run_seconds"],
            "wall_s": wall, "dual_steps": rec["steps"],
            "dual_steps_per_s": rec["steps"] * (epochs - 1) / epochs / sum(steady),
@@ -1229,8 +1247,8 @@ def cli_protocol(smi_line: str, fb, hsimae_model, pretrained: Path, runs: Path,
            "best_lr": res.best_lr, "selection_scores": {str(k): v for k, v in
                                                         res.selection_scores.items()},
            "result": line, "extrapolated_full_protocol_s": extrapolated,
-           "extrapolation": "17 runs x the mean selection run's wall x 200/20 epochs + 5 x a "
-                            "test run's extra wall (its scene evaluation); not measured",
+           "extrapolation": f"17 runs x the mean selection run's wall x 200/{epochs} epochs + "
+                            "5 x a test run's extra wall (its scene evaluation); not measured",
            "note": "synthetic scene, not the paper's numbers", "card": smi_line}
     print(json.dumps(row), flush=True)
     launches = {"protocol": counts}
@@ -1411,6 +1429,62 @@ def scene_main_path(smi_line: str, fb, hsimae_model, model: str) -> dict:
     return launches, {dname: r[1].pred_map for dname, r in results.items()}
 
 
+def serve_child(art: Path, xs: Path, out: Path) -> subprocess.Popen:
+    """Start 14c's fresh process on ``art``: it loads the artifact, says
+    ``loaded`` (:func:`serve_child_loaded`) and waits for
+    :func:`serve_child_run`'s go. Its standard error goes to ``out`` with the
+    suffix ``.err``."""
+    err = open(out.with_suffix(".err"), "w")
+    child = subprocess.Popen([sys.executable, "-c", SERVE_CHILD, str(art), str(xs), str(out),
+                              json.dumps(SERVE_NS)], cwd=Path(__file__).resolve().parent,
+                             stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=err,
+                             text=True)
+    err.close()
+    child.err_path, child.deadline = out.with_suffix(".err"), time.monotonic() + 600
+    return child
+
+
+def serve_child_loaded(child: subprocess.Popen, variant: str) -> None:
+    """Wait (until the process's deadline) for a :func:`serve_child` process
+    to say that it has loaded its artifact."""
+    import threading
+
+    timer = threading.Timer(max(1.0, child.deadline - time.monotonic()), child.kill)
+    timer.start()
+    try:
+        said = ""
+        for line in child.stdout:
+            said = line.strip()
+            if said == "loaded":
+                return
+        child.wait()
+    finally:
+        timer.cancel()
+    fail(f"serving {variant}: the fresh process did not load (last said {said!r}, exit "
+         f"{child.returncode}):\n{child.err_path.read_text()[-3000:]}")
+
+
+def serve_child_run(child: subprocess.Popen, variant: str) -> dict:
+    """Tell a loaded :func:`serve_child` process to serve (the card is
+    otherwise idle meanwhile) and return its report. The process is killed
+    at its deadline."""
+    import threading
+
+    timer = threading.Timer(max(1.0, child.deadline - time.monotonic()), child.kill)
+    timer.start()
+    try:
+        child.stdin.write("go\n")
+        child.stdin.flush()
+        rest = child.stdout.read()
+        child.wait()
+    finally:
+        timer.cancel()
+    if child.returncode != 0:
+        fail(f"serving {variant} in a fresh process failed (exit {child.returncode}):\n"
+             f"{child.err_path.read_text()[-3000:]}")
+    return json.loads(rest.strip().splitlines()[-1])
+
+
 def serving(smi_line: str, fb, params_path: Path, runs: Path, gen, max_err: dict) -> dict:
     """Phase 14 (module docstring): the kernels at the artifact's launch
     shapes, then phase 13's last weights exported in four variants, each
@@ -1445,108 +1519,118 @@ def serving(smi_line: str, fb, params_path: Path, runs: Path, gen, max_err: dict
     np.save(xs, x.numpy())
     scene_args = cli_evaluate.build_parser().parse_args(SCENE_ARGV)
     scene, gt, _ = cli_evaluate.prepare(scene_args)
-    sizes, maps = {}, {}
-    for variant, (flags, dname) in SERVE_VARIANTS.items():
-        own = MAIN_KERNEL[dname]
-        cfg = preset("HSIMAE-B", compute_dtype=getattr(torch, dname))
-        # ---- 14b. export through the CLI ----
-        art = runs / f"serve_{variant}.pt2"
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(sys.stderr):
-            cli_export.main(["--params", str(params_path), "--num-classes", str(FT_CLASSES),
-                             "--output", str(art), "--model", "HSIMAE-B", *flags])
-        export_s = time.perf_counter() - t0
-        sizes[variant] = art.stat().st_size
+    sizes, maps, children, export_s = {}, {}, {}, {}
+    try:
+        # ---- 14b. export through the CLI; each artifact's fresh process (14c) starts
+        # at once and loads it while the next exports run ----
+        for variant, (flags, dname) in SERVE_VARIANTS.items():
+            art = runs / f"serve_{variant}.pt2"
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(sys.stderr):
+                cli_export.main(["--params", str(params_path), "--num-classes",
+                                 str(FT_CLASSES), "--output", str(art), "--model", "HSIMAE-B",
+                                 *flags])
+            export_s[variant] = time.perf_counter() - t0
+            sizes[variant] = art.stat().st_size
+            children[variant] = serve_child(art, xs, runs / f"serve_{variant}.npz")
+        # every fresh process has loaded before any serves: 14c-e then run on a quiet host
+        for variant, child in children.items():
+            serve_child_loaded(child, variant)
+        for variant, (flags, dname) in SERVE_VARIANTS.items():
+            own = MAIN_KERNEL[dname]
+            cfg = preset("HSIMAE-B", compute_dtype=getattr(torch, dname))
+            art, out = runs / f"serve_{variant}.pt2", runs / f"serve_{variant}.npz"
+            clf = load_classifier(str(art), device="cuda")
+            weights = clf.weights()  # the (dequantized) weights the artifact serves
+            live = build_classifier(weights, cfg, FT_CLASSES, device="cuda")
+            torch.cuda.synchronize()
+            # ---- 14c. serve in the fresh process without the model source, alone ----
+            info = serve_child_run(children.pop(variant), variant)
+            got = np.load(out)
+            with torch.inference_mode():
+                want = torch.cat([live.classify(c.cuda()) for c in x.split(1024)]).float().cpu()
+            worst = 0.0
+            for n in SERVE_NS:
+                calls = -(-n // 1024)
+                if info["launches"][str(n)] != [21 * calls * (k == own) for k in KERNELS]:
+                    fail(f"serving {variant} at n={n} launched {info['launches'][str(n)]}, "
+                         f"expected {21 * calls} of {own} only")
+                if got[str(n)].shape != (n, FT_CLASSES) or not np.isfinite(got[str(n)]).all():
+                    fail(f"serving {variant} at n={n} gave logits of shape {got[str(n)].shape}")
+                ref = want[:n].numpy()
+                worst = max(worst, float((np.abs(got[str(n)] - ref) / np.maximum(1, np.abs(ref)))
+                                         .max()))
+                for k, c in zip(KERNELS, info["launches"][str(n)]):
+                    launches["serving predict"][k] += c
+            if worst > TOL[dname] or info["pack_builds_in_requests"] or info["models_imported"] \
+                    or not info["numpy_out_at_63"]:
+                fail(f"serving {variant}: scaled logits error {worst} (tol {TOL[dname]}), {info}")
 
-        # ---- 14c. load and serve in a fresh process without the model source ----
-        out = runs / f"serve_{variant}.npz"
-        child = subprocess.run([sys.executable, "-c", SERVE_CHILD, str(art), str(xs), str(out),
-                                json.dumps(SERVE_NS)], cwd=Path(__file__).resolve().parent,
-                               capture_output=True, text=True, timeout=600)
-        if child.returncode != 0:
-            fail(f"serving {variant} in a fresh process failed:\n{child.stderr[-3000:]}")
-        info = json.loads(child.stdout.strip().splitlines()[-1])
-        got = np.load(out)
-        clf = load_classifier(str(art), device="cuda")
-        weights = clf.weights()  # the (dequantized) weights the artifact serves
-        live = build_classifier(weights, cfg, FT_CLASSES, device="cuda")
-        with torch.inference_mode():
-            want = torch.cat([live.classify(c.cuda()) for c in x.split(1024)]).float().cpu()
-        worst = 0.0
-        for n in SERVE_NS:
-            calls = -(-n // 1024)
-            if info["launches"][str(n)] != [21 * calls * (k == own) for k in KERNELS]:
-                fail(f"serving {variant} at n={n} launched {info['launches'][str(n)]}, expected "
-                     f"{21 * calls} of {own} only")
-            if got[str(n)].shape != (n, FT_CLASSES) or not np.isfinite(got[str(n)]).all():
-                fail(f"serving {variant} at n={n} gave logits of shape {got[str(n)].shape}")
-            ref = want[:n].numpy()
-            worst = max(worst, float((np.abs(got[str(n)] - ref) / np.maximum(1, np.abs(ref)))
-                                     .max()))
-            for k, c in zip(KERNELS, info["launches"][str(n)]):
-                launches["serving predict"][k] += c
-        if worst > TOL[dname] or info["pack_builds_in_requests"] or info["models_imported"] \
-                or not info["numpy_out_at_63"]:
-            fail(f"serving {variant}: scaled logits error {worst} (tol {TOL[dname]}), {info}")
+            # ---- 14d. cli.evaluate --artifact on the phase-4 scene, against --params ----
+            reset_counts(fb)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(sys.stderr):
+                res = cli_evaluate.main(SCENE_ARGV + ["--artifact", str(art)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            counts = launch_counts(fb)
+            if counts != {k: SCENE_LAUNCHES * (k == own) for k in KERNELS}:
+                fail(f"cli.evaluate --artifact ({variant}) launched {counts}, expected "
+                     f"{SCENE_LAUNCHES} of {own} only")
+            for k in KERNELS:
+                launches["cli.evaluate --artifact"][k] += counts[k]
+            wpath = runs / f"serve_{variant}_weights.pt"
+            torch.save(weights, wpath)
+            with contextlib.redirect_stdout(sys.stderr):
+                res_p = cli_evaluate.main(SCENE_ARGV + ["--params", str(wpath)]
+                                          + (["--no-bf16"] if dname == "float32" else []))
+            agree = float((res.pred_map == res_p.pred_map).mean())
+            maps[variant] = res.pred_map
 
-        # ---- 14d. cli.evaluate --artifact on the phase-4 scene, against --params ----
-        reset_counts(fb)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(sys.stderr):
-            res = cli_evaluate.main(SCENE_ARGV + ["--artifact", str(art)])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated()
-        counts = launch_counts(fb)
-        if counts != {k: SCENE_LAUNCHES * (k == own) for k in KERNELS}:
-            fail(f"cli.evaluate --artifact ({variant}) launched {counts}, expected "
-                 f"{SCENE_LAUNCHES} of {own} only")
-        for k in KERNELS:
-            launches["cli.evaluate --artifact"][k] += counts[k]
-        wpath = runs / f"serve_{variant}_weights.pt"
-        torch.save(weights, wpath)
-        with contextlib.redirect_stdout(sys.stderr):
-            res_p = cli_evaluate.main(SCENE_ARGV + ["--params", str(wpath)]
-                                      + (["--no-bf16"] if dname == "float32" else []))
-        agree = float((res.pred_map == res_p.pred_map).mean())
-        maps[variant] = res.pred_map
-
-        # ---- 14e. warm scene through the artifact against predict_scene, in turns ----
-        ecfg = EvalConfig(batch_size=BATCH)
-        walls = {"artifact": [], "live": []}
-        for i in range(4):
-            for name, fn in (("artifact", lambda: classify_scene_artifact(scene, clf, ecfg)),
-                             ("live", lambda: predict_scene(live, scene, ecfg))):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                if i:  # the first turn warms up
-                    walls[name].append(time.perf_counter() - t0)
-        art_s, live_s = (sorted(walls[k])[1] for k in ("artifact", "live"))  # medians of 3
-        n_pix = scene.shape[0] * scene.shape[1]
-        row = {"main_path": "serving", "variant": variant, "model": "HSIMAE-B", "dtype": dname,
-               "flags": flags, "artifact_bytes": sizes[variant], "export_s": export_s,
-               "kernel": own, "request_launches": info["launches"],
-               "pack_builds_in_requests": info["pack_builds_in_requests"],
-               "max_scaled_logit_err": worst, "tol": TOL[dname],
-               "cuda_init_s": info["cuda_init_s"], "load_s": info["load_s"],
-               "predict_1024_ms": info["predict_1024_ms"],
-               "serve_max_memory_allocated_bytes": info["max_memory_allocated_bytes"],
-               "scene_launches": counts[own], "scene_cli_wall_s": wall,
-               "scene_cli_max_memory_allocated_bytes": peak,
-               "agreement_with_params_run": agree,
-               "warm_artifact_pixels_per_s": n_pix / art_s,
-               "warm_predict_scene_pixels_per_s": n_pix / live_s,
-               "warm_walls_s": walls, "card": smi_line}
-        print(json.dumps(row), flush=True)
-        if agree < MIN_AGREEMENT:
-            fail(f"cli.evaluate --artifact ({variant}) agrees with --params on {agree:.5f} of "
-                 f"pixels (< {MIN_AGREEMENT})")
-        del clf, live
-        torch.cuda.empty_cache()
+            # ---- 14e. warm scene through the artifact against predict_scene, in turns ----
+            ecfg = EvalConfig(batch_size=BATCH)
+            walls = {"artifact": [], "live": []}
+            for i in range(4):
+                for name, fn in (("artifact", lambda: classify_scene_artifact(scene, clf, ecfg)),
+                                 ("live", lambda: predict_scene(live, scene, ecfg))):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    if i:  # the first turn warms up
+                        walls[name].append(time.perf_counter() - t0)
+            art_s, live_s = (sorted(walls[k])[1] for k in ("artifact", "live"))  # medians of 3
+            n_pix = scene.shape[0] * scene.shape[1]
+            row = {"main_path": "serving", "variant": variant, "model": "HSIMAE-B", "dtype": dname,
+                   "flags": flags, "artifact_bytes": sizes[variant],
+                   "export_s": export_s[variant],
+                   "kernel": own, "request_launches": info["launches"],
+                   "pack_builds_in_requests": info["pack_builds_in_requests"],
+                   "max_scaled_logit_err": worst, "tol": TOL[dname],
+                   "cuda_init_s": info["cuda_init_s"], "load_s": info["load_s"],
+                   "load_note": "the fresh processes load beside 14b's exports and each "
+                                "other; all have loaded before 14c-e",
+                   "predict_1024_ms": info["predict_1024_ms"],
+                   "serve_max_memory_allocated_bytes": info["max_memory_allocated_bytes"],
+                   "scene_launches": counts[own], "scene_cli_wall_s": wall,
+                   "scene_cli_max_memory_allocated_bytes": peak,
+                   "agreement_with_params_run": agree,
+                   "warm_artifact_pixels_per_s": n_pix / art_s,
+                   "warm_predict_scene_pixels_per_s": n_pix / live_s,
+                   "warm_walls_s": walls, "card": smi_line}
+            print(json.dumps(row), flush=True)
+            if agree < MIN_AGREEMENT:
+                fail(f"cli.evaluate --artifact ({variant}) agrees with --params on {agree:.5f} of "
+                     f"pixels (< {MIN_AGREEMENT})")
+            del clf, live
+            torch.cuda.empty_cache()
+    finally:
+        for child in children.values():
+            child.kill()
+            child.wait()
     ratio = sizes["int8"] / sizes["f32"]
     print(json.dumps({"check": "serving sizes", "bytes": sizes, "int8_over_f32": ratio,
                       "max_int8_over_f32": MAX_INT8_SIZE,
@@ -1628,7 +1712,7 @@ def dp_dual_steps(device, mesh=None):
 
 
 def dp_finetune_ranks(fb, pretrained: str, log_path: Path) -> dict:
-    """Phase 15f on one rank: ``cli.finetune.main`` (bf16, 20 epochs,
+    """Phase 15f on one rank: ``cli.finetune.main`` (bf16, 10 epochs,
     ``--eval``) with its steps wrapped to read this rank's launch counts:
     none in a dual step, 21 of the bf16 kernel in each val batch share, and
     the ``--eval`` launches. Returns them, the losses and (rank 0) what the
@@ -1706,8 +1790,8 @@ def dp_finetune_ranks(fb, pretrained: str, log_path: Path) -> dict:
 def rank_job(kind: str, report_dir: str, extra: list) -> int:
     """One rank of a ``torch.distributed.run`` job of phase 15 (``python3
     -m torch.distributed.run ... chip_smoke.py --rank-job KIND DIR ...``):
-    ``dp`` runs 15a, 15b, 15c and 15f on this rank; ``nccl`` runs 15d.
-    Writes ``DIR/rank{r}.pt``."""
+    ``dp`` runs 15a, 15b, 15c and 15f on this rank; ``nccl`` runs 15d, then
+    18c (read in phase 18, against 18b). Writes ``DIR/rank{r}.pt``."""
     import torch
     import torch.distributed as dist
     from hsimae_tpu_torch.ops import fused_block as fb
@@ -1718,6 +1802,7 @@ def rank_job(kind: str, report_dir: str, extra: list) -> int:
         shutdown_distributed,
     )
 
+    t_rank = time.perf_counter()
     device = init_distributed(device="cuda")
     rank, out = dist.get_rank(), {"backend": dist.get_backend()}
     runs = Path(report_dir).parent
@@ -1755,14 +1840,7 @@ def rank_job(kind: str, report_dir: str, extra: list) -> int:
             # 15f: cli.finetune from phase 9's bf16 weights, --eval
             out["finetune"] = dp_finetune_ranks(
                 fb, extra[1], Path(extra[2]) / f"smoke_dp_finetune_rank{rank}.log")
-        elif kind == "nccl_fused":  # 18c: the fused CLI at one rank
-            from hsimae_tpu_torch.cli import pretrain as cli
-
-            out["mesh"] = str(default_mesh())
-            reset_counts(fb)
-            out["hist"] = cli.main(PRETRAIN_ARGV + ["--fused-steps", str(FUSED_STEPS)])[1]
-            out["pretrain_launches"] = launch_counts(fb)
-        else:  # nccl: cli.pretrain's parts at one rank, stopped after epoch 1
+        else:  # nccl: cli.pretrain's parts at one rank, stopped after epoch 1; then 18c
             from hsimae_tpu_torch.cli import pretrain as cli
             from hsimae_tpu_torch.train.pretrain import run_pretraining
 
@@ -1773,18 +1851,31 @@ def rank_job(kind: str, report_dir: str, extra: list) -> int:
             _, out["hist"] = run_pretraining(source, index.locs, mcfg, pcfg, resume=False,
                                              stop_after_epochs=1, device=args.device)
             out["pretrain_launches"] = launch_counts(fb)
+            out["run_s"] = time.perf_counter() - t_rank
+            del source
+            torch.cuda.empty_cache()
+
+            # 18c: the fused CLI at this rank, its gradient all-reduce captured with the steps
+            reset_counts(fb)
+            t0 = time.perf_counter()
+            out["fused_hist"] = cli.main(PRETRAIN_ARGV + ["--fused-steps", str(FUSED_STEPS)])[1]
+            out["fused_s"] = time.perf_counter() - t0
+            out["fused_launches"] = launch_counts(fb)
+        out["rank_s"] = time.perf_counter() - t_rank
         torch.save(out, Path(report_dir) / f"rank{rank}.pt")
     finally:
         shutdown_distributed()
     return 0
 
 
-def launch_ranks(n: int, kind: str, report_dir: Path, log_path: Path, extra: list,
-                 timeout: int) -> list:
-    """Run ``n`` ranks of :func:`rank_job` under ``python3 -m
-    torch.distributed.run`` (output to ``log_path``) -> each rank's report."""
-    import torch
+BACKGROUND = []  # rank jobs started and not yet joined: stopped if the script ends first
 
+
+def start_ranks(n: int, kind: str, report_dir: Path, log_path: Path, extra: list,
+                timeout: int) -> dict:
+    """Start ``n`` ranks of :func:`rank_job` under ``python3 -m
+    torch.distributed.run`` in the background (output to ``log_path``, in a
+    session of its own); :func:`join_ranks` waits for them."""
     shutil.rmtree(report_dir, ignore_errors=True)
     report_dir.mkdir(parents=True)
     with socket.socket() as s:
@@ -1795,13 +1886,44 @@ def launch_ranks(n: int, kind: str, report_dir: Path, log_path: Path, extra: lis
            str(report_dir), *extra]
     # the ranks split the host's cores (torch.distributed.run would give each one thread)
     env = dict(os.environ, OMP_NUM_THREADS=str(max(1, (os.cpu_count() or 1) // n)))
-    with open(log_path, "w") as log:
-        rc = subprocess.run(cmd, cwd=Path(__file__).resolve().parent, stdout=log,
-                            stderr=subprocess.STDOUT, timeout=timeout, env=env).returncode
+    log = open(log_path, "w")
+    proc = subprocess.Popen(cmd, cwd=Path(__file__).resolve().parent, stdout=log,
+                            stderr=subprocess.STDOUT, env=env, start_new_session=True)
+    job = {"n": n, "kind": kind, "report_dir": report_dir, "log_path": log_path, "log": log,
+           "proc": proc, "deadline": time.monotonic() + timeout, "t0": time.perf_counter()}
+    BACKGROUND.append(job)
+    return job
+
+
+def stop_job(job: dict) -> None:
+    """Kill a rank job's whole session (the launcher and its ranks)."""
+    if job["proc"].poll() is None:
+        try:
+            os.killpg(job["proc"].pid, 9)
+        except ProcessLookupError:
+            pass
+        job["proc"].wait()
+    job["log"].close()
+    if job in BACKGROUND:
+        BACKGROUND.remove(job)
+
+
+def join_ranks(job: dict) -> list:
+    """Wait for a job of :func:`start_ranks` (until its deadline) -> each
+    rank's report; its seconds from start to end in ``job["s"]``."""
+    import torch
+
+    try:
+        rc = job["proc"].wait(timeout=max(1.0, job["deadline"] - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        rc = "killed at its time limit"
+    job["s"] = time.perf_counter() - job["t0"]
+    stop_job(job)
     if rc:
-        tail = log_path.read_text()[-4000:]
-        fail(f"torch.distributed.run of {n} ranks ({kind}) exited {rc}:\n{tail}")
-    return [torch.load(report_dir / f"rank{r}.pt", weights_only=False) for r in range(n)]
+        tail = job["log_path"].read_text()[-4000:]
+        fail(f"torch.distributed.run of {job['n']} ranks ({job['kind']}) exited {rc}:\n{tail}")
+    return [torch.load(job["report_dir"] / f"rank{r}.pt", weights_only=False)
+            for r in range(job["n"])]
 
 
 def scaled_err(a: dict, b: dict) -> float:
@@ -1818,7 +1940,8 @@ def data_parallel(smi_line: str, fb, hsimae_model, runs: Path, log_dir: Path, sp
     over NCCL; 15e: ``cli.evaluate --dp 2`` in both dtypes, each rank's
     launches and the map against phases 4/5; 15f: ``cli.finetune`` on 2
     ranks, bf16, ``--eval``. Returns the launches per kernel on each path
-    that runs a kernel, summed over the ranks."""
+    that runs a kernel, summed over the ranks, and 15d's rank report (its job
+    also ran 18c)."""
     import torch
     from hsimae_tpu_torch.cli import evaluate as cli_evaluate
     from hsimae_tpu_torch.config import EvalConfig
@@ -1826,14 +1949,35 @@ def data_parallel(smi_line: str, fb, hsimae_model, runs: Path, log_dir: Path, sp
 
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
-    # ---- 15a, 15b: one process on the card, then the two ranks ----
+    # the two rank jobs run in the background, beside each other and beside 15a/b's single
+    # process and 15e: each check of this phase is of values, none of speed
+    dp_job = start_ranks(DP_RANKS, "dp", runs / "dp_reports", log_dir / "smoke_dp.log",
+                         [str(spe), str(runs / "bf16" / "params_final.pt"), str(log_dir)],
+                         timeout=900)
+    nccl_job = start_ranks(1, "nccl", runs / "nccl_reports", log_dir / "smoke_nccl.log", [],
+                           timeout=600)
+    # ---- 15a, 15b: one process on the card ----
     single_pt, single_dual = dp_pretrain_steps("cuda"), dp_dual_steps("cuda")
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    reports = launch_ranks(DP_RANKS, "dp", runs / "dp_reports", log_dir / "smoke_dp.log",
-                           [str(spe), str(runs / "bf16" / "params_final.pt"), str(log_dir)],
-                           timeout=900)
-    job_s = time.perf_counter() - t0
+
+    # ---- 15e: cli.evaluate --dp 2, both dtypes (rows printed after 15d's) ----
+    launches = {"cli.evaluate --dp 2": dict.fromkeys(KERNELS, 0)}
+    eval_rows = []
+    for dname, argv in MAIN_ARGV.items():
+        own = MAIN_KERNEL[dname]
+        t0 = time.perf_counter()
+        res = cli_evaluate.main(argv + ["--model", "HSIMAE-B", "--dp", str(DP_RANKS)])
+        wall = time.perf_counter() - t0
+        eval_rows.append({"main_path": "cli.evaluate --dp 2", "model": "HSIMAE-B",
+                          "dtype": dname, "kernel": own,
+                          "launches_by_rank": res.launches_by_rank,
+                          "agreement_with_single_process": float(
+                              (res.pred_map == scene_maps[dname]).mean()),
+                          "wall_s": wall, "note": "beside the rank jobs of 15a-d and 15f",
+                          "card": smi_line})
+
+    # ---- 15a, 15b: the two ranks ----
+    reports = join_ranks(dp_job)
     for name, (losses, params) in (("pretrain_steps", single_pt), ("dual_steps", single_dual)):
         rank_losses = [r[name][0] if isinstance(r[name], tuple) else r[name] for r in reports]
         loss_rel = max(abs(a - b) / abs(b) for rl in rank_losses for a, b in zip(rl, losses))
@@ -1869,7 +2013,8 @@ def data_parallel(smi_line: str, fb, hsimae_model, runs: Path, log_dir: Path, sp
            "note": "both ranks share one card over gloo: not a speed claim",
            "files": files, "epoch_lines_in_train_jsonl": epochs_logged,
            "launches": [r["pretrain_launches"] for r in reports],
-           "job_s": job_s, "rank0_full_run_s": reports[0]["full_s"], "card": smi_line}
+           "job_s": dp_job["s"], "rank0_full_run_s": reports[0]["full_s"],
+           "card": smi_line}
     print(json.dumps(row), flush=True)
     if rel > RESUME_RTOL or len(resumed["epoch_loss"]) != 1 or rel_single > DP_SINGLE_RTOL:
         fail(f"data-parallel cli.pretrain: the resume or the single-process loss disagrees: "
@@ -1881,41 +2026,31 @@ def data_parallel(smi_line: str, fb, hsimae_model, runs: Path, log_dir: Path, sp
         fail("data-parallel pretraining launched a block kernel")
 
     # ---- 15d: NCCL at one rank ----
-    t0 = time.perf_counter()
-    nccl = launch_ranks(1, "nccl", runs / "nccl_reports", log_dir / "smoke_nccl.log", [],
-                        timeout=600)[0]
+    nccl = join_ranks(nccl_job)[0]
     loss = nccl["hist"]["epoch_loss"]
     rel_nccl = abs(loss[0] - single_epoch_1) / abs(single_epoch_1)
     row = {"main_path": "cli.pretrain parts (torch.distributed.run, 1 rank)",
            "backend": nccl["backend"], "mesh": nccl["mesh"], "epoch_loss": loss,
            "single_process_epoch_1": single_epoch_1, "rel": rel_nccl, "rtol": RESUME_RTOL,
-           "patches_per_sec": nccl["hist"]["patches_per_sec"],
-           "job_s": time.perf_counter() - t0, "card": smi_line}
+           "patches_per_sec": nccl["hist"]["patches_per_sec"], "rank_s": nccl["run_s"],
+           "note": "beside the 2-rank job and 15e: not a speed claim", "card": smi_line}
     print(json.dumps(row), flush=True)
     if nccl["backend"] != "nccl" or len(loss) != 1 or rel_nccl > RESUME_RTOL \
             or any(nccl["pretrain_launches"].values()):
         fail(f"the one-rank NCCL run disagrees with phase 9: {row}")
 
     # ---- 15e: cli.evaluate --dp 2, both dtypes ----
-    launches = {"cli.evaluate --dp 2": dict.fromkeys(KERNELS, 0)}
-    for dname, argv in MAIN_ARGV.items():
-        own = MAIN_KERNEL[dname]
-        t0 = time.perf_counter()
-        res = cli_evaluate.main(argv + ["--model", "HSIMAE-B", "--dp", str(DP_RANKS)])
-        wall = time.perf_counter() - t0
+    for row in eval_rows:
+        dname, own, agree = row["dtype"], row["kernel"], row["agreement_with_single_process"]
         want = {k: DP_EVAL_LAUNCHES * (k == own) for k in KERNELS}
-        agree = float((res.pred_map == scene_maps[dname]).mean())
-        row = {"main_path": "cli.evaluate --dp 2", "model": "HSIMAE-B", "dtype": dname,
-               "kernel": own, "launches_by_rank": res.launches_by_rank,
-               "agreement_with_single_process": agree, "wall_s": wall, "card": smi_line}
         print(json.dumps(row), flush=True)
-        if any(r != want for r in res.launches_by_rank):
-            fail(f"cli.evaluate --dp 2 {dname}: ranks launched {res.launches_by_rank}, "
+        if any(r != want for r in row["launches_by_rank"]):
+            fail(f"cli.evaluate --dp 2 {dname}: ranks launched {row['launches_by_rank']}, "
                  f"expected {DP_EVAL_LAUNCHES} of {own} each")
         if agree < MIN_AGREEMENT:
             fail(f"cli.evaluate --dp 2 {dname} map agrees with the single process on "
                  f"{agree:.5f} of pixels (< {MIN_AGREEMENT})")
-        for r in res.launches_by_rank:
+        for r in row["launches_by_rank"]:
             for k in KERNELS:
                 launches["cli.evaluate --dp 2"][k] += r[k]
 
@@ -1959,7 +2094,7 @@ def data_parallel(smi_line: str, fb, hsimae_model, runs: Path, log_dir: Path, sp
     print(json.dumps({"phase": "data_parallel", "seconds": time.perf_counter() - t_phase,
                       "card": smi_line}), flush=True)
     torch.cuda.empty_cache()
-    return launches
+    return launches, nccl
 
 
 # ----------------------------- phase 16: the baseline zoo -----------------------------
@@ -2610,26 +2745,24 @@ def cli_fused_pretrain(smi_line: str, fb, workdir: Path, eager_row: dict) -> dic
     return row
 
 
-def fused_nccl(smi_line: str, runs: Path, fused_row: dict) -> None:
-    """Phase 18c: the fused CLI at one NCCL rank (``torch.distributed.run``,
-    phase 15d's route): its gradient all-reduce is captured with the steps;
-    its epoch losses against 18b's. The rank's log goes to ``runs`` (its
-    tail is in the failure message)."""
-    t0 = time.perf_counter()
-    rank = launch_ranks(1, "nccl_fused", runs / "nccl_fused_reports",
-                        runs / "smoke_nccl_fused.log", [], timeout=600)[0]
-    loss = rank["hist"]["epoch_loss"]
+def fused_nccl(smi_line: str, rank: dict, fused_row: dict) -> None:
+    """Phase 18c: the fused CLI at one NCCL rank (``torch.distributed.run``),
+    run in 15d's job after 15d (``rank`` is that job's report): its gradient
+    all-reduce is captured with the steps; its epoch losses against 18b's."""
+    hist = rank["fused_hist"]
+    loss = hist["epoch_loss"]
     rel = max(abs(a - b) / abs(b) for a, b in zip(loss, fused_row["epoch_loss"]))
     row = {"main_path": "cli.pretrain --fused-steps (torch.distributed.run, 1 rank)",
            "backend": rank["backend"], "mesh": rank["mesh"], "epoch_loss": loss,
            "single_process_epoch_loss": fused_row["epoch_loss"], "rel": rel,
-           "rtol": RESUME_RTOL, "patches_per_sec": rank["hist"]["patches_per_sec"],
-           "capture_seconds_by_epoch": rank["hist"]["capture_seconds"],
-           "launches": rank["pretrain_launches"], "job_s": time.perf_counter() - t0,
+           "rtol": RESUME_RTOL, "patches_per_sec": hist["patches_per_sec"],
+           "capture_seconds_by_epoch": hist["capture_seconds"],
+           "launches": rank["fused_launches"], "run_s": rank["fused_s"],
+           "note": "in 15d's job, beside phase 15's other work: not a speed claim",
            "card": smi_line}
     print(json.dumps(row), flush=True)
     if rank["backend"] != "nccl" or len(loss) != 2 or rel > RESUME_RTOL \
-            or any(rank["pretrain_launches"].values()):
+            or any(rank["fused_launches"].values()):
         fail(f"the fused one-rank NCCL run disagrees with phase 18b: {row}")
 
 
@@ -2660,8 +2793,7 @@ def main() -> int:
         for line in _build.build_log(name).splitlines():
             if "Used " in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
-    for name, widths in (("fused_block_wgmma", (64, 128, 256)), ("fused_block_tf32x3", (64, 128)),
-                         ("fused_block_tf32x3_d256", (256,))):
+    for name, widths in WIDTHS.items():
         smem = getattr(_build.load_library(name), f"hsimae_{name}_smem_bytes")
         print(f"  {name} dynamic shared memory per CTA: "
               + ", ".join(f"D {d}: {smem(d)} B" for d in widths), flush=True)
@@ -2673,7 +2805,8 @@ def main() -> int:
     max_err = dict.fromkeys(KERNELS, 0.0)
 
     checks = [(dtype, dname, shape) for dtype, dname in dnames.items() for shape in CHECK_SHAPES]
-    checks += [(torch.float32, "float32", shape) for shape in F32_CHECK_SHAPES]
+    checks += [(dtype, dname, shape) for dtype, dname in dnames.items()
+               for shape in LONGEST_CHECK_SHAPES]
     for dtype, dname, (m, s, d, hid) in checks:
         p = random_block(d, hid, gen, dev)
         x = torch.randn(m, s, d, generator=gen).to(dev, dtype)
@@ -2750,19 +2883,22 @@ def main() -> int:
     launches.update(serving(smi_line, fb, runs / "protocol_last.pt", runs, gen, max_err))
 
     # ---- 15. data parallelism: 2 ranks on the card over gloo, NCCL at one rank ----
-    launches.update(data_parallel(smi_line, fb, hsimae_model, runs, root / "chiprun_out",
-                                  pretrain_row["steps_per_epoch"],
-                                  pretrain_row["epoch_loss"][0], scene_maps))
+    dp_launches, nccl_report = data_parallel(smi_line, fb, hsimae_model, runs,
+                                             root / "chiprun_out",
+                                             pretrain_row["steps_per_epoch"],
+                                             pretrain_row["epoch_loss"][0], scene_maps)
+    launches.update(dp_launches)
 
     # ---- 18. fused pretraining: chunk against eager steps, the fused CLI, NCCL ----
     t_phase = time.perf_counter()
     fused_chunk_card_vs_eager(smi_line, fb)
     torch.cuda.empty_cache()
     fused_row = cli_fused_pretrain(smi_line, fb, runs / "fused", pretrain_row)
-    fused_nccl(smi_line, runs, fused_row)
+    fused_nccl(smi_line, nccl_report, fused_row)
     launches["cli.pretrain --fused-steps"] = dict.fromkeys(KERNELS, 0)  # checked there: none
     print(json.dumps({"phase": "fused_pretraining", "seconds": time.perf_counter() - t_phase,
-                      "card": smi_line}), flush=True)
+                      "note": "18a and 18b; 18c ran in 15d's job", "card": smi_line}),
+          flush=True)
     shutil.rmtree(runs, ignore_errors=True)
 
     # ---- 16. the baseline zoo: card against CPU, then cli.benchmark ----
@@ -2794,8 +2930,7 @@ def main() -> int:
                  "max_abs_err": max_err[name],
                  "launches_by_path": {path: n[name] for path, n in launches.items()},
                  **times, "per": f"batch of 21 launches of {next(iter(by_model))}",
-                 "widths": {"fused_block_tf32x3": [64, 128], "fused_block_tf32x3_d256": [256],
-                            "fused_block_wgmma": [64, 128, 256]}[name]}
+                 "widths": list(WIDTHS[name])}
         entry["share_of_bound"] = times["bound_ms"] / times["ms"]
         if len(by_model) > 1:
             entry["per_batch_by_model"] = by_model
@@ -2812,4 +2947,9 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank-job"]:  # one rank of a phase-15 job
         sys.exit(rank_job(sys.argv[2], sys.argv[3], sys.argv[4:]))
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        for job in list(BACKGROUND):  # a failure left a rank job running
+            stop_job(job)
+    sys.exit(code)

@@ -174,8 +174,9 @@ class HSIMAE(nn.Module):
         """The weights of block list ``name`` laid out for the kernel of the
         stream dtype ``cfg.compute_dtype`` (:func:`kernel_weights`): a
         :class:`Tf32Pack` (TF32 hi and lo tiles) for float32 at D 64 and 128,
-        :class:`BlockParams` for float32 at D 256, a :class:`BlockPack` (bf16
-        tiles) for bfloat16. Built once (the entry is keyed by dtype) and
+        a :class:`Tf32D256Pack` for float32 at D 256, a :class:`BlockPack`
+        (bf16 tiles) for bfloat16 at D 64 and 128, a :class:`BlockD256Pack`
+        for bfloat16 at D 256. Built once (the entry is keyed by dtype) and
         rebuilt only after a weight is replaced (``.to``,
         ``load_state_dict``) or changed in place (its version counter, which
         an optimizer step bumps)."""

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface (``extern "C"``, raw
 pointers, ints and the ``cudaStream_t``) and compiles with one nvcc call into
-``_build/<name>-<hash>.so``, where the hash covers the source and the
-flags (extra ones, such as a profiling ``-D`` switch, are an argument). The
+``_build/<name>-<hash>.so``, where the hash covers the source, the
+``csrc/`` headers it ``#include``s by name (found through ``-I csrc``) and the flags
+(extra ones, such as a profiling ``-D`` switch, are an argument). The
 first use builds it (a few seconds with no PyTorch headers involved); later
 uses load the library already built. :func:`build_all` starts one nvcc per
 source at once. Any build or load error raises.
@@ -15,6 +16,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -49,6 +51,13 @@ SIGNATURES = {
         "hsimae_fused_block_wgmma_smem_bytes": (_I, [_I]),
         "hsimae_fused_block_wgmma_image_bytes": (ctypes.c_longlong, [_I, _I]),
     },
+    "fused_block_wgmma_d256": {
+        "hsimae_fused_block_wgmma_d256": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+        "hsimae_fused_block_wgmma_d256_max_seq": (_I, [_I]),
+        "hsimae_fused_block_wgmma_d256_max_hidden": (_I, [_I]),
+        "hsimae_fused_block_wgmma_d256_smem_bytes": (_I, [_I]),
+        "hsimae_fused_block_wgmma_d256_image_bytes": (ctypes.c_longlong, [_I, _I]),
+    },
 }
 
 
@@ -63,7 +72,9 @@ def nvcc_path() -> str:
 def library_path(name: str, extra_flags: tuple = ()) -> Path:
     src = CSRC / f"{name}.cu"
     flags = " ".join((*NVCC_FLAGS, *extra_flags))
-    digest = hashlib.sha256(src.read_bytes() + flags.encode()).hexdigest()[:16]
+    included = re.findall(rb'^#include "([^"]+)"', src.read_bytes(), re.M)
+    headers = b"".join((CSRC / h.decode()).read_bytes() for h in sorted(included))
+    digest = hashlib.sha256(src.read_bytes() + headers + flags.encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
@@ -75,7 +86,8 @@ def _start(name: str, extra_flags: tuple = ()):
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, *extra_flags, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc_path(), *NVCC_FLAGS, *extra_flags, "-I", str(CSRC), "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, lib, time.perf_counter()
 

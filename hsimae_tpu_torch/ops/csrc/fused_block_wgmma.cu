@@ -2,9 +2,9 @@
 // Hopper's tensor cores (sm_90a: wgmma, bulk async copies, mbarriers).
 //
 // Replaces the Pallas TPU kernel hsimae_tpu/ops/fused_block.py::_kernel
-// (math _block_math) for the bfloat16 stream; the float32 stream stays on
-// the CUDA-core kernel csrc/fused_block.cu (TF32 wgmma cannot hold its
-// 2e-5 check). Per sequence, rounding to bf16 where the reference does:
+// (math _block_math) for the bfloat16 stream at D 64 and 128; D 256 runs
+// csrc/fused_block_wgmma_d256.cu. Per sequence, rounding to bf16 where the
+// reference does:
 //
 //   y  = bf16(LN1(x))                     f32 statistics, eps 1e-5
 //   q, k, v = bf16(y W + b)               bf16 x bf16, f32 accumulators
@@ -18,8 +18,8 @@
 // and packed weights, ~770 FLOP per byte, far above the card's bf16 balance
 // point (~295). So the design keeps every intermediate on chip and feeds the
 // tensor cores from shared memory:
-//   * a CTA owns a row tile of whole sequences, 128 rows (64 at D 256), one
-//     consumer warpgroup per 64 rows; wgmma M is 64. Products are row-local,
+//   * a CTA owns a row tile of whole sequences, 128 rows, one consumer
+//     warpgroup per 64 rows; wgmma M is 64. Products are row-local,
 //     so a sequence may straddle the two warpgroups; only LayerNorm (a warp
 //     per row, eight rows in flight) and attention read across rows, from
 //     shared memory;
@@ -76,7 +76,7 @@ constexpr int align1024(int v) { return (v + 1023) / 1024 * 1024; }
 
 template <int D>
 struct Geom {
-  static constexpr int NC = D > 128 ? 1 : 2;  // consumer warpgroups
+  static constexpr int NC = 2;  // consumer warpgroups
   static constexpr int RT = NC * 64;          // rows per tile
   static constexpr int THREADS = (NC + 1) * 128;  // + the producer warpgroup
   static constexpr int NT = D < 128 ? D : 128;  // output columns per D-wide wgmma
@@ -694,7 +694,7 @@ __global__ void __launch_bounds__(Geom<D>::THREADS, 1)
     // ---- producer warpgroup: one thread streams the packed block, tile
     // after tile, into the ring; the warpgroup hands its registers to the
     // consumers ----
-    if constexpr (G::NC == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (warp == G::NC * 4 && lane == 0) {
       const uint32_t slots = smem_u32(smem);
       int stage = 0;
@@ -723,7 +723,7 @@ __global__ void __launch_bounds__(Geom<D>::THREADS, 1)
   }
 
   // ---- consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of the tile ----
-  if constexpr (G::NC == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
   const int wg = warp >> 2, tid = threadIdx.x & 127;
   const int r_lo = 64 * wg;
   const int bar_wg = 2 + wg, n_all = G::NC * 128;
@@ -887,7 +887,7 @@ int hsimae_fused_block_wgmma_phase_clocks(unsigned long long* host) {
 
 // Longest sequence the kernel takes at width D (0 if D is unsupported).
 int hsimae_fused_block_wgmma_max_seq(int D) {
-  return (D == 64 || D == 128 || D == 256) ? kMaxSeq : 0;
+  return (D == 64 || D == 128) ? kMaxSeq : 0;
 }
 
 // Dynamic shared memory a CTA of the kernel takes at width D, in bytes.
@@ -895,7 +895,6 @@ int hsimae_fused_block_wgmma_smem_bytes(int D) {
   switch (D) {
     case 64: return Geom<64>::SMEM;
     case 128: return Geom<128>::SMEM;
-    case 256: return Geom<256>::SMEM;
     default: return 0;
   }
 }
@@ -905,7 +904,6 @@ int hsimae_fused_block_wgmma_max_hidden(int D) {
   switch (D) {
     case 64: return Geom<64>::MAX_HIDDEN;
     case 128: return Geom<128>::MAX_HIDDEN;
-    case 256: return Geom<256>::MAX_HIDDEN;
     default: return 0;
   }
 }
@@ -915,7 +913,6 @@ long long hsimae_fused_block_wgmma_image_bytes(int D, int Hp) {
   switch (D) {
     case 64: return image_bytes<64>(Hp);
     case 128: return image_bytes<128>(Hp);
-    case 256: return image_bytes<256>(Hp);
     default: return 0;
   }
 }
@@ -932,7 +929,6 @@ int hsimae_fused_block_wgmma(const void* x, void* out, const void* image, const 
   switch (D) {
     case 64: return launch<64>(x, out, image, vecs, M, S, Hp, s);
     case 128: return launch<128>(x, out, image, vecs, M, S, Hp, s);
-    case 256: return launch<256>(x, out, image, vecs, M, S, Hp, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

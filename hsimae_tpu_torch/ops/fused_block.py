@@ -1,7 +1,7 @@
 """One fused pre-LN transformer block: CUDA kernels, wrapper and plain version.
 
 Counterpart of ``hsimae_tpu/ops/fused_block.py``. The Pallas TPU kernel
-(``_kernel``, math ``_block_math``) becomes three hand-written CUDA kernels
+(``_kernel``, math ``_block_math``) becomes four hand-written CUDA kernels
 for sm_90a, chosen by stream dtype and width (a fixed route, never a
 fallback), built by ``nvcc`` and bound with ``ctypes``
 (:mod:`hsimae_tpu_torch.ops._build`):
@@ -15,9 +15,14 @@ fallback), built by ``nvcc`` and bound with ``ctypes``
   arithmetic with attention by head group and the SwiGLU half by hidden
   tile (the D 128 kernel's tile does not fit in shared memory at that
   width); takes a :class:`Tf32D256Pack` from :func:`pack_block_tf32_d256`;
-* bfloat16: ``csrc/fused_block_wgmma.cu``, on the tensor cores (wgmma fed by
-  bulk async copies through a shared-memory ring, persistent CTAs); takes a
-  :class:`BlockPack`, the block's weights packed once by :func:`pack_block`.
+* bfloat16 at D 64 and 128: ``csrc/fused_block_wgmma.cu``, on the tensor
+  cores (wgmma fed by bulk async copies through a shared-memory ring,
+  persistent CTAs); takes a :class:`BlockPack`, the block's weights packed
+  once by :func:`pack_block`;
+* bfloat16 at D 256: ``csrc/fused_block_wgmma_d256.cu``, 128-row tiles on
+  two consumer warpgroups, q/k/v and attention by head group, the SwiGLU
+  half by hidden tile; takes a :class:`BlockD256Pack` from
+  :func:`pack_block_wgmma_d256`.
 
 :func:`kernel_weights` gives the weights in the form the route takes. One
 launch covers all M sequences; the JAX package's ``fused_block_sliced`` (a
@@ -26,9 +31,9 @@ TPU compile workaround) has no counterpart.
 * :func:`block_reference` is the plain PyTorch version of the block math.
 * :func:`fused_encoder_block` is the wrapper: on a CPU tensor it returns the
   plain version; on a CUDA tensor it launches the route's kernel or raises.
-  ``TF32X3_LAUNCHES``, ``TF32X3_D256_LAUNCHES`` and ``WGMMA_LAUNCHES``
-  count launches of the float32 kernels at D 64/128 and D 256 and of the
-  bfloat16 kernel.
+  ``TF32X3_LAUNCHES``, ``TF32X3_D256_LAUNCHES``, ``WGMMA_LAUNCHES`` and
+  ``WGMMA_D256_LAUNCHES`` count launches of the float32 kernels at D 64/128
+  and D 256 and of the bfloat16 kernels at D 64/128 and D 256.
 * :func:`fused_block_op` registers the wrapper as the operator
   ``torch.ops.hsimae.fused_block`` (CUDA: the wrapper; CPU: the plain
   version; fake: ``empty_like(x)``), with the weights flattened by
@@ -48,21 +53,24 @@ from hsimae_tpu_torch.ops import _build
 
 # Kernel launches since import (or since a caller last set them to 0): the
 # float32 3xTF32 kernels at D 64/128 and at D 256, and the bfloat16 wgmma
-# kernel.
+# kernels at D 64/128 and at D 256.
 TF32X3_LAUNCHES = 0
 TF32X3_D256_LAUNCHES = 0
 WGMMA_LAUNCHES = 0
+WGMMA_D256_LAUNCHES = 0
 
 SUPPORTED_D = (64, 128, 256)
 TF32X3_D = (64, 128)  # float32 widths of fused_block_tf32x3.cu
 TF32X3_WIDE_D = 256  # the float32 width of fused_block_tf32x3_d256.cu
+WGMMA_WIDE_D = 256  # the bfloat16 width of fused_block_wgmma_d256.cu
 HEAD_DIM = 16
 _DTYPES = (torch.float32, torch.bfloat16)
 
-# Weight pack of the bf16 kernel: tiles of up to 128 output rows x 64 K
-# columns (one 128-byte swizzle atom), in the order the kernel consumes them:
-# wq, wk, wv, wo (output-row blocks of min(D, 128), K atoms inner), then per
-# 64 hidden columns W1's rows over W3's (K atoms inner), then W2.
+# Weight pack of the bf16 kernel at D 64 and 128: tiles of up to 128 output
+# rows x 64 K columns (one 128-byte swizzle atom), in the order the kernel
+# consumes them: wq, wk, wv, wo (output-row blocks of min(D, 128), K atoms
+# inner), then per 64 hidden columns W1's rows over W3's (K atoms inner),
+# then W2.
 HIDDEN_MULTIPLE = 16  # wgmma's K step for bf16: the padded hidden axis
 _ATOM_K = 64
 _HID_TILE = 64  # hidden columns per interleaved [W1 | W3] tile
@@ -85,6 +93,16 @@ _TF32_ATOM_K = 32
 # tile's K slice of W2.
 _D256_ATOM_K = 16
 _GROUP_COLS = 64
+
+# Weight pack of the bf16 kernel at D 256 (the bf16 pack's tiles, atoms and
+# hidden padding), in the order that kernel consumes them: per head group of
+# 64 columns, the K atoms of its [q | k] rows (128), then those of its v rows
+# (64); the K atoms of Wo's output rows 0-127, then of 128-255; per 64
+# hidden columns, per 32 of them the K atoms of W1's rows over W3's, then
+# W2's K atom of the 64 columns (zero-padded to 64), output rows 0-127 then
+# 128-255.
+_HALF_ROWS = 128
+_HID_SUB = 32  # hidden columns per [W1 | W3] product of the D 256 kernel
 
 
 class BlockParams(NamedTuple):
@@ -134,7 +152,7 @@ def params_from_state(state: dict, prefix: str = "") -> BlockParams:
 def launch_counts() -> dict:
     """Each kernel's launches in this process so far: name -> count."""
     return {"fused_block_tf32x3": TF32X3_LAUNCHES, "fused_block_tf32x3_d256": TF32X3_D256_LAUNCHES,
-            "fused_block_wgmma": WGMMA_LAUNCHES}
+            "fused_block_wgmma": WGMMA_LAUNCHES, "fused_block_wgmma_d256": WGMMA_D256_LAUNCHES}
 
 
 def params_from_block(block) -> BlockParams:
@@ -158,6 +176,16 @@ class BlockPack(NamedTuple):
     params: BlockParams  # the float32 weights it was packed from
     image: torch.Tensor  # bf16, 1-D: the swizzled weight tiles in the kernel's order
     vecs: torch.Tensor  # float32, 1-D: ln1 (scale, bias), bq, bk, bv, bo, ln2, b2, b1, b3
+
+
+class BlockD256Pack(NamedTuple):
+    """One D 256 block's weights as the bf16 D 256 kernel reads them, built
+    once by :func:`pack_block_wgmma_d256`: as :class:`BlockPack`, in that
+    kernel's tile order."""
+
+    params: BlockParams
+    image: torch.Tensor
+    vecs: torch.Tensor
 
 
 class Tf32Pack(NamedTuple):
@@ -267,6 +295,48 @@ def pack_block(p: BlockParams) -> BlockPack:
     return BlockPack(p, _image(p, torch.bfloat16, hp, _ATOM_K), _vecs(p, hp))
 
 
+def _halves(w: torch.Tensor) -> torch.Tensor:
+    """``w [256, K]`` (``[out, in]``, K a multiple of 64) as swizzled tiles
+    of 128 output rows x 64 K: K atoms outer, the two row halves inner."""
+    n, k = w.shape
+    tiles = w.reshape(n // _HALF_ROWS, _HALF_ROWS, k // _ATOM_K, _ATOM_K).permute(2, 0, 1, 3)
+    return swizzle128(tiles).reshape(-1)
+
+
+def _wgmma_d256_image(p: BlockParams, hp: int) -> torch.Tensor:
+    """The bf16 image of the D 256 kernel's pack (order above), the hidden
+    axis zero-padded to ``hp``."""
+    bf = torch.bfloat16
+    pad = hp - p.w1.shape[1]
+    wq, wk, wv, wo = (w.t().to(bf) for w in (p.wq, p.wk, p.wv, p.wo))  # [out, in]
+    w1t = F.pad(p.w1.t().to(bf), (0, 0, 0, pad))  # [hp, d]
+    w3t = F.pad(p.w3.t().to(bf), (0, 0, 0, pad))
+    w2t = F.pad(p.w2.t().to(bf), (0, pad))  # [d, hp]
+    g = _GROUP_COLS
+    parts = []
+    for c0 in range(0, p.wq.shape[0], g):
+        parts += [_atoms(torch.cat([wq[c0:c0 + g], wk[c0:c0 + g]]), 2 * g, _ATOM_K),
+                  _atoms(wv[c0:c0 + g], g, _ATOM_K)]
+    parts.append(_atoms(wo, _HALF_ROWS, _ATOM_K))
+    for h0 in range(0, hp, _HID_TILE):
+        h1 = min(h0 + _HID_TILE, hp)
+        parts += [_atoms(torch.cat([w1t[a:b], w3t[a:b]]), 2 * (b - a), _ATOM_K)
+                  for a, b in ((a, min(a + _HID_SUB, h1)) for a in range(h0, h1, _HID_SUB))]
+        parts.append(_halves(F.pad(w2t[:, h0:h1], (0, _HID_TILE - (h1 - h0)))))
+    return torch.cat(parts).contiguous()
+
+
+@torch.no_grad()
+def pack_block_wgmma_d256(p: BlockParams) -> BlockD256Pack:
+    """Pack one D 256 block for the bf16 D 256 kernel, on the weights'
+    device: every matrix rounded to bf16, transposed to ``[out, in]``, cut
+    into that kernel's tiles in its order (above) and swizzled, the hidden
+    axis zero-padded to a multiple of 16 (as :func:`pack_block`). Done once
+    per model, never per launch."""
+    hp = padded_hidden(p.w1.shape[-1])
+    return BlockD256Pack(p, _wgmma_d256_image(p, hp), _vecs(p, hp))
+
+
 @torch.no_grad()
 def pack_block_tf32(p: BlockParams) -> Tf32Pack:
     """Pack one block for the 3xTF32 kernel, on the weights' device: the
@@ -321,16 +391,17 @@ def pack_block_tf32_d256(p: BlockParams) -> Tf32D256Pack:
     return Tf32D256Pack(p, hi, rna_tf32(image - hi), _vecs(p, hp))
 
 
-def kernel_weights(p: BlockParams, dtype: torch.dtype) -> BlockParams | BlockPack | Tf32Pack | Tf32D256Pack:
+def kernel_weights(p: BlockParams, dtype: torch.dtype) -> BlockParams | BlockPack | BlockD256Pack \
+        | Tf32Pack | Tf32D256Pack:
     """The weights in the form the kernel of stream ``dtype`` at the
-    block's width takes: a :class:`BlockPack` for bfloat16, a
-    :class:`Tf32Pack` for float32 at D 64 and 128, a
-    :class:`Tf32D256Pack` for float32 at D 256. At a width no kernel
-    takes, the :class:`BlockParams` themselves (the CPU's plain version
-    runs them; a CUDA tensor raises)."""
-    if dtype == torch.bfloat16:
-        return pack_block(p)
+    block's width takes: a :class:`BlockPack` for bfloat16 at D 64 and 128,
+    a :class:`BlockD256Pack` for bfloat16 at D 256, a :class:`Tf32Pack`
+    for float32 at D 64 and 128, a :class:`Tf32D256Pack` for float32 at D
+    256. At a width no float32 kernel takes, the :class:`BlockParams`
+    themselves (the CPU's plain version runs them; a CUDA tensor raises)."""
     d = p.wq.shape[0]
+    if dtype == torch.bfloat16:
+        return pack_block_wgmma_d256(p) if d == WGMMA_WIDE_D else pack_block(p)
     if d in TF32X3_D:
         return pack_block_tf32(p)
     if d == TF32X3_WIDE_D:
@@ -407,30 +478,55 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _launch_wgmma(x: torch.Tensor, pack: BlockPack, num_heads: int) -> torch.Tensor:
-    """The bfloat16 tensor-core kernel."""
-    global WGMMA_LAUNCHES
-    lib = _build.load_library("fused_block_wgmma")
-    d = x.shape[-1]
-    _check(x, pack.params, num_heads, lib.hsimae_fused_block_wgmma_max_seq(d))
+def _run_bf16(name: str, x: torch.Tensor, pack: BlockPack | BlockD256Pack,
+              num_heads: int) -> torch.Tensor:
+    """Check ``x`` and ``pack`` against the bf16 kernel library ``name`` and
+    launch it; returns the output (no launch for M = 0)."""
+    lib = _build.load_library(name)
+
+    def fn(suffix=""):
+        return getattr(lib, f"hsimae_{name}{suffix}")
+
+    d = x.shape[-1] if x.dim() == 3 else None
+    max_seq = fn("_max_seq")(d) if d is not None else 0
+    if d is not None and max_seq == 0:
+        raise ValueError(f"{name} takes no width D={d}")
+    _check(x, pack.params, num_heads, max_seq)
     hp = padded_hidden(pack.params.w1.shape[-1])
-    if hp > lib.hsimae_fused_block_wgmma_max_hidden(d):
+    if hp > fn("_max_hidden")(d):
         raise ValueError(f"unsupported padded hidden width {hp} at D={d}")
-    want = lib.hsimae_fused_block_wgmma_image_bytes(d, hp)
-    for name, t, dtype, n in (("image", pack.image, torch.bfloat16, want // 2),
+    want = fn("_image_bytes")(d, hp)
+    for part, t, dtype, n in (("image", pack.image, torch.bfloat16, want // 2),
                               ("vecs", pack.vecs, torch.float32, 9 * d + 2 * hp)):
         if t.dtype != dtype or t.device != x.device or not t.is_contiguous() or t.numel() != n:
-            raise ValueError(f"pack {name} must be a contiguous {dtype} tensor of {n} on {x.device}")
+            raise ValueError(f"pack {part} must be a contiguous {dtype} tensor of {n} on {x.device}")
     m, s, _ = x.shape
     out = torch.empty_like(x)
     if m == 0:
         return out
     with torch.cuda.device(x.device):
-        rc = lib.hsimae_fused_block_wgmma(x.data_ptr(), out.data_ptr(), pack.image.data_ptr(),
-                                          pack.vecs.data_ptr(), m, s, d, hp, num_heads, _stream(x))
+        rc = fn()(x.data_ptr(), out.data_ptr(), pack.image.data_ptr(), pack.vecs.data_ptr(), m, s,
+                  d, hp, num_heads, _stream(x))
     if rc != 0:
-        raise RuntimeError(f"fused block wgmma kernel launch failed: cudaError_t {rc}")
-    WGMMA_LAUNCHES += 1
+        raise RuntimeError(f"fused block {name} kernel launch failed: cudaError_t {rc}")
+    return out
+
+
+def _launch_wgmma(x: torch.Tensor, pack: BlockPack, num_heads: int) -> torch.Tensor:
+    """The bfloat16 tensor-core kernel at D 64 and 128."""
+    global WGMMA_LAUNCHES
+    out = _run_bf16("fused_block_wgmma", x, pack, num_heads)
+    if x.shape[0]:
+        WGMMA_LAUNCHES += 1
+    return out
+
+
+def _launch_wgmma_d256(x: torch.Tensor, pack: BlockD256Pack, num_heads: int) -> torch.Tensor:
+    """The bfloat16 tensor-core kernel at D 256."""
+    global WGMMA_D256_LAUNCHES
+    out = _run_bf16("fused_block_wgmma_d256", x, pack, num_heads)
+    if x.shape[0]:
+        WGMMA_D256_LAUNCHES += 1
     return out
 
 
@@ -475,12 +571,13 @@ def _launch_tf32x3(x: torch.Tensor, pack: Tf32Pack | Tf32D256Pack, num_heads: in
 
 # The route of each weight form: the kernel library it launches on a CUDA
 # tensor, or the plain version for BlockParams (no kernel takes them there).
-ROUTES = {BlockPack: "fused_block_wgmma", Tf32Pack: "fused_block_tf32x3",
-          Tf32D256Pack: "fused_block_tf32x3_d256", BlockParams: "block_reference"}
+ROUTES = {BlockPack: "fused_block_wgmma", BlockD256Pack: "fused_block_wgmma_d256",
+          Tf32Pack: "fused_block_tf32x3", Tf32D256Pack: "fused_block_tf32x3_d256",
+          BlockParams: "block_reference"}
 _PACK_OF_ROUTE = {route: cls for cls, route in ROUTES.items()}
 
 
-def pack_tensors(p: BlockParams | BlockPack | Tf32Pack | Tf32D256Pack) -> tuple:
+def pack_tensors(p: BlockParams | BlockPack | BlockD256Pack | Tf32Pack | Tf32D256Pack) -> tuple:
     """``(route, tensors)``: the route of ``p``'s form and its tensors in one
     flat list, the 18 :class:`BlockParams` first (:func:`tensors_pack`
     inverts it)."""
@@ -489,14 +586,16 @@ def pack_tensors(p: BlockParams | BlockPack | Tf32Pack | Tf32D256Pack) -> tuple:
     return ROUTES[type(p)], [*p.params, *p[1:]]
 
 
-def tensors_pack(route: str, tensors) -> BlockParams | BlockPack | Tf32Pack | Tf32D256Pack:
+def tensors_pack(route: str, tensors) -> BlockParams | BlockPack | BlockD256Pack | Tf32Pack \
+        | Tf32D256Pack:
     """The weights :func:`pack_tensors` flattened, in their form again."""
     params = BlockParams(*tensors[:len(BlockParams._fields)])
     cls = _PACK_OF_ROUTE[route]
     return params if cls is BlockParams else cls(params, *tensors[len(BlockParams._fields):])
 
 
-def fused_encoder_block(x: torch.Tensor, p: BlockParams | BlockPack | Tf32Pack | Tf32D256Pack,
+def fused_encoder_block(x: torch.Tensor,
+                        p: BlockParams | BlockPack | BlockD256Pack | Tf32Pack | Tf32D256Pack,
                         num_heads: int) -> torch.Tensor:
     """Apply one transformer block to ``[M, S, D]`` sequences.
 
@@ -505,8 +604,9 @@ def fused_encoder_block(x: torch.Tensor, p: BlockParams | BlockPack | Tf32Pack |
     route fixed by dtype and width, with the weights in the form
     :func:`kernel_weights` gives: float32 at D 64 and 128 the 3xTF32 wgmma
     kernel (a :class:`Tf32Pack`), float32 at D 256 the D 256 kernel (a
-    :class:`Tf32D256Pack`), bfloat16 the wgmma kernel (a
-    :class:`BlockPack`). Anything else raises."""
+    :class:`Tf32D256Pack`), bfloat16 at D 64 and 128 the wgmma kernel (a
+    :class:`BlockPack`), bfloat16 at D 256 the wgmma D 256 kernel (a
+    :class:`BlockD256Pack`). Anything else raises."""
     params = p if isinstance(p, BlockParams) else p.params
     if x.device.type == "cpu":
         return block_reference(x, params, num_heads)
@@ -514,11 +614,16 @@ def fused_encoder_block(x: torch.Tensor, p: BlockParams | BlockPack | Tf32Pack |
         raise ValueError(f"fused_encoder_block runs on cpu or cuda tensors, got {x.device}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"fused block kernel takes float32 or bfloat16, got {x.dtype}")
+    d = x.shape[-1] if x.dim() == 3 else None
     if x.dtype == torch.bfloat16:
+        if d == WGMMA_WIDE_D:
+            if not isinstance(p, BlockD256Pack):
+                raise TypeError("the bfloat16 kernel at D 256 takes packed weights: "
+                                "pass pack_block_wgmma_d256(params)")
+            return _launch_wgmma_d256(x, p, num_heads)
         if not isinstance(p, BlockPack):
             raise TypeError("the bfloat16 kernel takes packed weights: pass pack_block(params)")
         return _launch_wgmma(x, p, num_heads)
-    d = x.shape[-1] if x.dim() == 3 else None
     if d in TF32X3_D:
         if not isinstance(p, Tf32Pack):
             raise TypeError("the float32 kernel at D 64 and 128 takes packed weights: "

@@ -299,6 +299,14 @@ def save_classifier(path: str, blob: bytes) -> str:
     return path
 
 
+def program_routes(program: nn.Module) -> set:
+    """The routes (:data:`fused_block.ROUTES` values) that an exported
+    program's calls of ``torch.ops.hsimae.fused_block`` name."""
+    op = torch.ops.hsimae.fused_block.default
+    return {node.args[2] for node in program.graph.nodes
+            if node.op == "call_function" and node.target is op}
+
+
 class ExportedClassifier:
     """A loaded serving artifact on ``device``: bucketed, padded, chunked
     inference through the programs of that device's platform (an artifact
@@ -324,13 +332,22 @@ class ExportedClassifier:
             raise ValueError(f"the artifact holds programs for {self.platforms}, not for "
                              f"{platform}; export it again with --platforms {platform}")
         # built once: the weights dequantized or cast, the kernel layouts
-        self._rest, self._blocks, _ = kernel_inputs(
+        self._rest, self._blocks, routes = kernel_inputs(
             _float32_state(self.params, self.quantize, self.params_dtype, self.device),
             dict(bundle["kernel_stacks"]), _dtype(bundle["kernel_dtype"]))
         self._calls = {
             b: torch.export.load(io.BytesIO(zlib.decompress(
                 bundle["programs"][f"{platform}/{b}"]))).module()
             for b in self.batch_sizes}
+        built = {r for stack in routes.values() for r in stack}
+        for b, call in self._calls.items():
+            stale = program_routes(call) - built
+            if stale:
+                raise ValueError(
+                    f"the artifact's bucket-{b} program runs the fused block on route "
+                    f"{sorted(stale)}, whose weight layout this library no longer builds for "
+                    f"these blocks (it builds {sorted(built)}): export the weights again with "
+                    "hsimae_tpu_torch.cli.export")
 
     def weights(self) -> Dict[str, torch.Tensor]:
         """The float32 weights the programs serve (dequantized or cast as at

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Where the time goes inside the fused-block wgmma kernels, on one card.
 
-    python3 scripts/profile_fused_block.py [--kernel wgmma|tf32x3|d256|both|all]
+    python3 scripts/profile_fused_block.py [--kernel wgmma|wgmma_d256|tf32x3|d256|both|all]
 
-Builds ``ops/csrc/fused_block_wgmma.cu`` (bfloat16),
+Builds ``ops/csrc/fused_block_wgmma.cu`` (bfloat16 at D 64/128),
+``ops/csrc/fused_block_wgmma_d256.cu`` (bfloat16 at D 256),
 ``ops/csrc/fused_block_tf32x3.cu`` (float32 at D 64/128, 3xTF32) and
 ``ops/csrc/fused_block_tf32x3_d256.cu`` (float32 at D 256) a second time
 with ``-DHSIMAE_PHASE_CLOCKS``, all nvcc runs at once (``both`` is wgmma and
-tf32x3, ``all`` adds d256):
+tf32x3, ``all`` adds wgmma_d256 and d256):
 the first consumer thread of every CTA then adds the SM clocks it spends in
 each phase of a row tile to a device counter. For the HSIMAE-B main-path
 shapes at batch 4096, HSIMAE-L's at D 256 and the D 64 fusion shape (each
@@ -25,6 +26,15 @@ warpgroup to finish the previous tile, and that tile's output store),
 around it), ``out_proj`` (product and residual), ``ln2``, ``w13`` (SwiGLU
 hidden tiles, and the next tile's x prefetch), ``w2`` (product and
 residual).
+
+bf16 D 256 phases, summed over the four head groups and the hidden tiles:
+``tile_start`` (the warpgroup's barrier), ``ln1`` (x from global memory),
+``qkv`` (each group's [q | k] and v products, their epilogues and the
+barriers around them), ``attention``, ``out_proj`` (Wo's product),
+``ln2`` (the first residual add, LN2 in registers, the next tile's x
+prefetch), ``w13`` (each hidden tile's two [W1 | W3] products and their
+epilogues), ``w2`` (each tile's slice of W2), ``store`` (the second
+residual add).
 
 3xTF32 phases: ``tile_start`` (the barrier that frees q/k/v), ``x_ln1`` (x
 rows into shared memory and the LN1 statistics), ``qkv`` (three products on
@@ -59,9 +69,12 @@ SHAPES = {"blocks_1": (16384, 9, 128), "blocks_2": (36864, 4, 128), "fusion": (4
           "fusion_D64": (4096, 36, 64), "blocks_1_D256": (16384, 9, 256),
           "blocks_2_D256": (36864, 4, 256), "fusion_D256": (4096, 36, 256)}
 PROFILES = {
-    "wgmma": {"lib": "fused_block_wgmma", "widths": (64, 128, 256),
+    "wgmma": {"lib": "fused_block_wgmma", "widths": (64, 128),
               "phases": ("tile_start", "x_to_smem", "ln1", "qkv", "attention", "out_proj", "ln2",
                          "w13", "w2")},
+    "wgmma_d256": {"lib": "fused_block_wgmma_d256", "widths": (256,),
+                   "phases": ("tile_start", "ln1", "qkv", "attention", "out_proj", "ln2", "w13",
+                              "w2", "store")},
     "tf32x3": {"lib": "fused_block_tf32x3", "widths": (64, 128),
                "phases": ("tile_start", "x_ln1", "qkv", "attention", "out_proj", "ln2", "w13",
                           "w2", "store")},
@@ -70,8 +83,9 @@ PROFILES = {
                         "w2", "store"),
              "waits": ("ring_wait", "wgmma_wait", "bar_wait")},
 }
-CHOICES = {"wgmma": ("wgmma",), "tf32x3": ("tf32x3",), "d256": ("d256",),
-           "both": ("wgmma", "tf32x3"), "all": ("wgmma", "tf32x3", "d256")}
+CHOICES = {"wgmma": ("wgmma",), "wgmma_d256": ("wgmma_d256",), "tf32x3": ("tf32x3",),
+           "d256": ("d256",), "both": ("wgmma", "tf32x3"),
+           "all": ("wgmma", "wgmma_d256", "tf32x3", "d256")}
 
 
 def phase_weight_bytes(kernel: str, d: int, hp: int) -> dict:
@@ -81,6 +95,9 @@ def phase_weight_bytes(kernel: str, d: int, hp: int) -> dict:
         atom = d * 16 * 4 * 2  # a 256-row atom, hi and lo
         return {"qkv": 3 * d * d * 4 * 2, "out_proj": d // 16 * atom,
                 "w13": 2 * hp * d * 4 * 2, "w2": -(-hp // 16) * atom}
+    if kernel == "wgmma_d256":  # bf16; W2 by K atoms of 64 hidden columns, 256 rows each
+        return {"qkv": 3 * d * d * 2, "out_proj": d * d * 2, "w13": 2 * hp * d * 2,
+                "w2": -(-hp // 64) * d * 64 * 2}
     atom_k, images = (32, 2) if kernel == "tf32x3" else (64, 1)
     ka, hka = d // atom_k, -(-hp // atom_k)
     tile = d * 128 * images  # a D-wide product's K atom
@@ -129,12 +146,12 @@ def main() -> int:
                 hp = fb.padded_hidden(p.w1.shape[-1], fb.TF32_HIDDEN_MULTIPLE)
                 ptrs = (pack.hi.data_ptr(), pack.lo.data_ptr(), pack.vecs.data_ptr())
                 rows = 64
-            else:
-                pack = fb.pack_block(p)
+            else:  # both bf16 kernels take 128-row tiles
+                pack = fb.kernel_weights(p, torch.bfloat16)
                 x = torch.randn(m, s, d, generator=gen).to("cuda", torch.bfloat16)
                 hp = fb.padded_hidden(p.w1.shape[-1])
                 ptrs = (pack.image.data_ptr(), pack.vecs.data_ptr())
-                rows = 128 if d <= 128 else 64
+                rows = 128
             out_probe = torch.empty_like(x)
             fn = getattr(probe, f"hsimae_{prof['lib']}")
 

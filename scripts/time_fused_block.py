@@ -2,6 +2,7 @@
 """Time the fused-block kernels of one checkout of the port by two methods.
 
     python3 scripts/time_fused_block.py [--root DIR] [--label NAME] [--width 128|256]
+                                        [--kernel all|wgmma_d256]
 
 Imports ``hsimae_tpu_torch`` from ``--root`` (default: this repo), so the
 same timer can read an older checkout of the port, unpacked into a
@@ -18,7 +19,10 @@ case with the kernel's time by
 - ``back_to_back_ms``: CUDA events around 10 back-to-back calls divided by
   10, the median of 3 rounds (launch gaps hidden while the host stays ahead),
 
-then a last line with the card's name and power limit. Each kernel gets its
+then a last line with the card's name and power limit. ``--kernel
+wgmma_d256`` times only bfloat16 at HSIMAE-L's shapes: the D 256 kernel of
+a checkout that has one, the D 128 kernel's D 256 instantiation of an older
+one. Each kernel gets its
 weights in the form that checkout's wrapper takes: ``kernel_weights`` where
 the checkout has it (the float32 3xTF32 packs, the bfloat16 pack), else
 ``pack_block`` for bfloat16 and ``BlockParams`` for float32. Needs a CUDA
@@ -82,7 +86,10 @@ def main() -> int:
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--label", default="")
     ap.add_argument("--width", type=int, choices=sorted(MODELS), default=128)
+    ap.add_argument("--kernel", choices=("all", "wgmma_d256"), default="all")
     args = ap.parse_args()
+    if args.kernel == "wgmma_d256":
+        args.width = 256
     d, (model, heads, hidden) = args.width, MODELS[args.width]
     sys.path.insert(0, str(Path(args.root).resolve()))
     import torch
@@ -111,7 +118,8 @@ def main() -> int:
         return fb.pack_block(p) if hasattr(fb, "pack_block") and dtype == torch.bfloat16 else p
 
     gen = torch.Generator().manual_seed(0)
-    for dtype in (torch.float32, torch.bfloat16):
+    dtypes = (torch.bfloat16,) if args.kernel == "wgmma_d256" else (torch.float32, torch.bfloat16)
+    for dtype in dtypes:
         for name, (m, s, _) in shapes(d).items():
             p = weights(gen)
             w = kernel_weights(p, dtype)

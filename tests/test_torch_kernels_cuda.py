@@ -12,8 +12,9 @@ bf16 value).
 
 float32 at D 64 and 128 runs the 3xTF32 kernel on its pack
 (``TF32X3_LAUNCHES``), float32 at D 256 the 3xTF32 D 256 kernel on its
-pack (``TF32X3_D256_LAUNCHES``), bfloat16 the wgmma kernel on packed
-weights (``WGMMA_LAUNCHES``).
+pack (``TF32X3_D256_LAUNCHES``), bfloat16 at D 64 and 128 the wgmma kernel
+on packed weights (``WGMMA_LAUNCHES``), bfloat16 at D 256 the wgmma D 256
+kernel on its pack (``WGMMA_D256_LAUNCHES``).
 """
 
 import pytest
@@ -37,14 +38,15 @@ def random_block(d: int, hid: int, seed: int) -> tfb.BlockParams:
 
 
 def counts() -> tuple:
-    return tfb.TF32X3_LAUNCHES, tfb.TF32X3_D256_LAUNCHES, tfb.WGMMA_LAUNCHES
+    return (tfb.TF32X3_LAUNCHES, tfb.TF32X3_D256_LAUNCHES, tfb.WGMMA_LAUNCHES,
+            tfb.WGMMA_D256_LAUNCHES)
 
 
 def route(dtype, d: int) -> tuple:
     """The launch counts one call adds on the route of (dtype, D)."""
     if dtype == torch.bfloat16:
-        return 0, 0, 1
-    return (1, 0, 0) if d in tfb.TF32X3_D else (0, 1, 0)
+        return (0, 0, 0, 1) if d == tfb.WGMMA_WIDE_D else (0, 0, 1, 0)
+    return (1, 0, 0, 0) if d in tfb.TF32X3_D else (0, 1, 0, 0)
 
 
 def library_of(d: int) -> str:
@@ -141,7 +143,7 @@ def test_tf32x3_kernel_matches_plain_version(card, m, s, d, hid):
     got = tfb.fused_encoder_block(x, tfb.pack_block_tf32(p), d // 16)
     ref = tfb.block_reference(x, p, d // 16)
     torch.cuda.synchronize()
-    assert counts() == (before[0] + 1, before[1], before[2])
+    assert counts() == (before[0] + 1, *before[1:])
     assert got.dtype == torch.float32 and got.shape == x.shape
     assert torch.isfinite(got).all()
     err = scaled_err(got, ref)
@@ -170,7 +172,7 @@ def test_tf32x3_d256_kernel_matches_plain_version(card, m, s, hid):
     got = tfb.fused_encoder_block(x, tfb.pack_block_tf32_d256(p), 16)
     ref = tfb.block_reference(x, p, 16)
     torch.cuda.synchronize()
-    assert counts() == (before[0], before[1] + 1, before[2])
+    assert counts() == (before[0], before[1] + 1, *before[2:])
     assert got.dtype == torch.float32 and got.shape == x.shape
     assert torch.isfinite(got).all()
     err = scaled_err(got, ref)
@@ -189,24 +191,60 @@ def test_d256_grid_shapes_of_the_cases(card):
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,s,d", [
     *[(301, s, 128) for s in (2, 3, 4, 6, 9, 18, 36)],  # every S of the model at D 128
-    (300, 9, 64), (77, 36, 64), (300, 9, 256), (77, 36, 256),  # HSIMAE-S and -L widths
+    (300, 9, 64), (77, 36, 64),  # HSIMAE-S's width
     (3001, 9, 128),  # 215 row tiles of 14 sequences: the persistent loop wraps; last tile ragged
     (50, 9, 128),  # 4 row tiles, fewer than the SMs
-    (7, 64, 64), (3, 40, 256),  # the longest sequences the kernel takes
+    (7, 64, 64),  # the longest sequence the kernel takes
 ])
 def test_wgmma_kernel_matches_plain_version(card, m, s, d):
-    """The bf16 tensor-core kernel against block_reference (bf16, 5e-2 scaled)."""
+    """The bf16 tensor-core kernel at D 64 and 128 against block_reference
+    (bf16, 5e-2 scaled)."""
     p = random_block(d, swiglu_hidden_dim(d), seed=3 * s + d)
     x = torch.randn(m, s, d, generator=torch.Generator().manual_seed(m + s)).to("cuda", torch.bfloat16)
     before = counts()
     got = tfb.fused_encoder_block(x, tfb.pack_block(p), d // 16)
     ref = tfb.block_reference(x, p, d // 16)
     torch.cuda.synchronize()
-    assert counts() == (before[0], before[1], before[2] + 1)
+    assert counts() == (before[0], before[1], before[2] + 1, before[3])
     assert got.dtype == torch.bfloat16 and got.shape == x.shape
     assert torch.isfinite(got.float()).all()
     err = ((got.float() - ref.float()).abs() / ref.float().abs().clamp(min=1.0)).max().item()
     assert err <= 5e-2, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,s,hid", [
+    (300, 9, 684), (77, 36, 684), (3, 40, 684),  # HSIMAE-L's cases, once with the D 128 kernel's
+    *[(301, s, 684) for s in (1, 2, 3, 4, 6, 9, 18, 36)],  # every S of the model
+    (7, 64, 684),  # the longest sequence the kernel takes: 2 sequences a 128-row tile
+    (4093, 9, 684),  # 293 row tiles of 14 sequences: the persistent loop wraps; last tile ragged
+    (50, 9, 684),  # 4 row tiles, fewer than the SMs
+    # padded hidden widths whose last hidden tile is 16, 32 or 48 columns wide
+    (60, 9, 16), (60, 9, 96), (60, 9, 176),
+])
+def test_wgmma_d256_kernel_matches_plain_version(card, m, s, hid):
+    """The bf16 tensor-core kernel at D 256 against block_reference (bf16,
+    5e-2 scaled)."""
+    p = random_block(256, hid, seed=3 * s + 256 + hid)
+    x = torch.randn(m, s, 256, generator=torch.Generator().manual_seed(m + s)).to("cuda", torch.bfloat16)
+    before = counts()
+    got = tfb.fused_encoder_block(x, tfb.pack_block_wgmma_d256(p), 16)
+    ref = tfb.block_reference(x, p, 16)
+    torch.cuda.synchronize()
+    assert counts() == (*before[:3], before[3] + 1)
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    assert torch.isfinite(got.float()).all()
+    assert scaled_err(got, ref) <= 5e-2, scaled_err(got, ref)
+
+
+@pytest.mark.cuda
+def test_wgmma_d256_grid_shapes_of_the_cases(card):
+    """The D 256 cases above are what they claim on this card (128-row
+    tiles): more row tiles than SMs for (4093, 9), a ragged last tile, and
+    fewer row tiles than SMs for (50, 9)."""
+    per_tile = 128 // 9
+    assert -(-4093 // per_tile) > _sms() and 4093 % per_tile
+    assert -(-50 // per_tile) < _sms()
 
 
 @pytest.mark.cuda
@@ -221,8 +259,10 @@ def test_wgmma_grid_shapes_of_the_cases(card):
 
 @pytest.mark.cuda
 def test_bf16_on_card_takes_only_packed_weights(card):
-    """A bf16 CUDA tensor goes only to the wgmma kernel: unpacked weights
-    raise before any launch, and S past the kernel's limit is refused."""
+    """A bf16 CUDA tensor goes only to the wgmma kernel of its width:
+    unpacked weights, or the other width's pack, raise before any launch,
+    and S past the kernel's limit is refused. The D 128 kernel takes no D
+    256 at all."""
     p = random_block(128, 344, seed=0)
     x = torch.zeros(2, 9, 128, device="cuda", dtype=torch.bfloat16)
     before = counts()
@@ -231,6 +271,19 @@ def test_bf16_on_card_takes_only_packed_weights(card):
     with pytest.raises(ValueError, match="sequence length"):
         tfb.fused_encoder_block(torch.zeros(2, 65, 128, device="cuda", dtype=torch.bfloat16),
                                 tfb.pack_block(p), 8)
+    p256 = random_block(256, 684, seed=0)
+    x256 = torch.zeros(2, 9, 256, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="pack_block_wgmma_d256"):
+        tfb.fused_encoder_block(x256, tfb.pack_block(p256), 16)
+    with pytest.raises(TypeError, match="pack_block_wgmma_d256"):
+        tfb.fused_encoder_block(x256, p256, 16)
+    with pytest.raises(TypeError, match="pack_block\\(params\\)"):
+        tfb.fused_encoder_block(x, tfb.pack_block_wgmma_d256(p256), 8)
+    with pytest.raises(ValueError, match="takes no width D=256"):
+        tfb._launch_wgmma(x256, tfb.pack_block(p256), 16)
+    with pytest.raises(ValueError, match="sequence length"):
+        tfb.fused_encoder_block(torch.zeros(2, 65, 256, device="cuda", dtype=torch.bfloat16),
+                                tfb.pack_block_wgmma_d256(p256), 16)
     assert counts() == before
 
 
@@ -254,9 +307,34 @@ def test_bf16_model_launches_only_the_wgmma_kernel(card):
             ref = model.classify(x)
         finally:
             th.fused_encoder_block = orig
-    assert counts()[:2] == before[:2]
+    assert counts()[:2] == before[:2] and counts()[3] == before[3]
     assert n == 2 * cfg.s_depth + cfg.fusion_depth
     assert ((got - ref).abs() / ref.abs().clamp(min=1.0)).max().item() <= 5e-2
+
+
+@pytest.mark.cuda
+def test_bf16_hsimae_l_model_launches_only_the_d256_kernel(card):
+    """HSIMAE-L in bf16 on the card: every block through the wgmma D 256
+    kernel and no other, logits close to the same model with block_reference
+    per block (5e-2 scaled, as one bf16 block)."""
+    from hsimae_tpu_torch import config as tcfg
+    from hsimae_tpu_torch.models import hsimae as th
+
+    cfg = tcfg.preset("HSIMAE-L", compute_dtype=torch.bfloat16)
+    model = th.build_hsi_vit(cfg, 7, seed=1, device="cuda")
+    x = torch.randn(64, 9, 9, 32, generator=torch.Generator().manual_seed(1)).cuda()
+    before = counts()
+    with torch.inference_mode():
+        got = model.classify(x)
+        after = counts()
+        orig = th.fused_encoder_block
+        th.fused_encoder_block = lambda v, pk, h: tfb.block_reference(v, pk.params, h)
+        try:
+            ref = model.classify(x)
+        finally:
+            th.fused_encoder_block = orig
+    assert after == (*before[:3], before[3] + 2 * cfg.s_depth + cfg.fusion_depth)
+    assert scaled_err(got, ref) <= 5e-2
 
 
 @pytest.mark.cuda
@@ -280,7 +358,7 @@ def test_f32_hsimae_l_model_launches_only_the_d256_kernel(card):
             ref = model.classify(x)
         finally:
             th.fused_encoder_block = orig
-    assert after == (before[0], before[1] + 2 * cfg.s_depth + cfg.fusion_depth, before[2])
+    assert after == (before[0], before[1] + 2 * cfg.s_depth + cfg.fusion_depth, *before[2:])
     assert scaled_err(got, ref) <= 5e-4
 
 
@@ -305,14 +383,14 @@ def test_f32_model_launches_only_the_tf32x3_kernel(card):
             ref = model.classify(x)
         finally:
             th.fused_encoder_block = orig
-    assert after == (before[0] + 2 * cfg.s_depth + cfg.fusion_depth, before[1], before[2])
+    assert after == (before[0] + 2 * cfg.s_depth + cfg.fusion_depth, *before[1:])
     assert scaled_err(got, ref) <= 5e-4
 
 
 # The serving artifact's launch shapes: at bucket b, blocks_1 [4b, 9, D],
 # blocks_2 [9b, 4, D] and fusion [b, 36, D].
 SERVING_ROUTES = {"tf32x3": (torch.float32, 128, 2e-5), "d256": (torch.float32, 256, 2e-5),
-                  "wgmma": (torch.bfloat16, 128, 5e-2)}
+                  "wgmma": (torch.bfloat16, 128, 5e-2), "wgmma_d256": (torch.bfloat16, 256, 5e-2)}
 
 
 @pytest.mark.cuda

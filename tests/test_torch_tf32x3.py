@@ -371,10 +371,12 @@ def test_cpu_tensor_with_a_tf32_pack_takes_plain_version_without_launch():
 @pytest.mark.parametrize("d,dtype,kind", [(64, torch.float32, tfb.Tf32Pack),
                                           (128, torch.float32, tfb.Tf32Pack),
                                           (256, torch.float32, tfb.Tf32D256Pack),
-                                          (128, torch.bfloat16, tfb.BlockPack)])
+                                          (128, torch.bfloat16, tfb.BlockPack),
+                                          (256, torch.bfloat16, tfb.BlockD256Pack)])
 def test_kernel_weights_follow_the_route(d, dtype, kind):
     """float32 at D 64 and 128 takes the 3xTF32 pack, float32 at D 256 the
-    D 256 kernel's pack, bfloat16 the bf16 pack."""
+    D 256 kernel's pack, bfloat16 at D 64 and 128 the bf16 pack, bfloat16 at
+    D 256 the bf16 D 256 kernel's pack."""
     p = random_block(d, swiglu_hidden_dim(d), seed=d)
     assert type(tfb.kernel_weights(p, dtype)) is kind
 
