@@ -117,8 +117,9 @@ Phases, each of a fixed size; any failure exits non-zero:
    the route's kernel (6 gathers of 4096, 4 calls of bucket 1024, 21 a call),
    the map against ``cli.evaluate --params`` on the same weights on >= 99.9%
    of pixels; the int8 map's agreement with the float32 map is printed (not
-   a gate); e. warm pixels/s through the artifact against ``predict_scene``,
-   one ``predict_logits`` of 1024 in ms, peak memory;
+   a gate); e. one ``predict_logits`` of 1024 in ms and the peak memory, in
+   14c's process (warm scene pixels/s through the artifact against
+   ``predict_scene``: ``scripts/time_artifact_scene.py``);
 15. data parallelism (HSIMAE-B). The script needs one card and NCCL refuses
    two ranks on one device, so 2 ranks share cuda:0 over gloo, in jobs of
    ``python3 -m torch.distributed.run ... chip_smoke.py --rank-job ...``:
@@ -144,7 +145,9 @@ Phases, each of a fixed size; any failure exits non-zero:
 16. the baseline zoo (``hsimae_tpu_torch.models.baselines``, the bench
    harness and ``cli.benchmark``; plain PyTorch ops, no kernel of ours):
    a. each of the ten nets at its registry widths (PaviaU: 103 bands, 10
-   classes; SSFTT on 30 PCA bands at patch 13), seeded weights and
+   classes; SSFTT on 30 PCA bands at patch 13), and HiT again with its
+   other token mixer (``use_conv_mixer=False``, WeightedPermuteMLP; the
+   registry's HiT widths, depth and patch 15), seeded weights and
    BatchNorm statistics, eval logits of a batch of 16 on the card against
    the CPU (float32, 1e-4 scaled); b. one harness train step of each net
    (batch 32, the last 3 rows padding, flips and dropout masks injected, the
@@ -159,11 +162,10 @@ Phases, each of a fixed size; any failure exits non-zero:
    element within 1e-4 of its float64 window's maximum; c.
    ``hsimae_tpu_torch.cli.benchmark.main`` on the phase-4 scene (145x145x200,
    16 classes), all ten nets, 10 samples a class, lr grid 1e-3, 1 selection
-   seed, 2 test seeds, 5 epochs: its report keys and OA; then one 5-epoch
-   ``train_baseline`` and one ``evaluate_baseline`` of each net on that
-   scene, outside the CLI: the train-step ms (epochs 1-4), the full-scene
-   pixels/s, every logit of the scene finite; 0 fused-block launches over
-   the CLI run and these;
+   seed, 2 test seeds, 5 epochs: its report keys and OA, and every logit of
+   each net's scene evaluations (both test seeds') finite, read as the CLI
+   runs them; 0 fused-block launches over the CLI run (each net's train-step
+   ms and scene pixels/s: ``scripts/time_zoo_runs.py``);
 17. SVM-RBF and the quickstart (no kernel of ours in the SVM; the
    quickstart's bf16 model on the bf16 kernel): a. the coarse grid stage
    (35 (C, gamma) points x 120 class pairs = 4,200 duals) of
@@ -194,22 +196,42 @@ Phases, each of a fixed size; any failure exits non-zero:
    without the capture beside phase 9's eager rate, peak memory beside
    phase 9's; a fresh two-epoch run with the background writer (2 kept)
    and ``--profile`` (epoch 2's capture runs during a checkpoint write and
-   under the profiler; its trace written; losses within 1e-3); then, in
-   bf16 and float32, one chunk of 16 built as the loop builds it against
-   16 warm eager steps: capture seconds, warm ms, peak memory, and the
-   device's busy share in a ``torch.profiler`` trace of one bf16 chunk
-   (the CLI runs give the capture seconds of each kept grid); c. the fused CLI at one NCCL
-   rank under ``torch.distributed.run`` (phase 15d's route; its all-reduce
-   is captured), epoch losses within 1e-3 of 18b's; it runs in 15d's job,
-   after 15d, and is read here. No block kernel
+   under the profiler; its trace written; losses within 1e-3); the CLI
+   runs give the capture seconds of each kept grid; one float32 chunk of
+   16 at the same batch, its capture and one replay, finite losses (that
+   chunk against 16 warm eager steps in both dtypes, with a trace of the
+   device's busy share: ``scripts/time_fused_chunk.py``); c. the fused
+   CLI at one NCCL rank under ``torch.distributed.run`` (phase 15d's
+   route; its all-reduce is captured), epoch losses within 1e-3 of 18b's;
+   it runs in 15d's job, after 15d, and is read here. No block kernel
    launches anywhere in phase 18;
+19. HSIMAE-L training (D 256, 16 heads, full width and depth): a. phase
+   18a's two chunks of 3 float32 steps at batch 64 (phase 18a's scenes and
+   injected draws), the chunk recomputing every block in the backward pass
+   (``remat``, ``torch.utils.checkpoint`` inside the CUDA-graph capture)
+   against the same six eager steps without it on the card and the same
+   chunks on the CPU; then with a bf16 first moment, chunk (remat) against
+   eager steps on the card; loss 1e-4 relative, parameters ``1e-4 * max(1,
+   |p|)``; b. ``cli.pretrain --model HSIMAE-L --fused-steps 16 --remat
+   --adam-mu-dtype bfloat16`` at phase 9's setting (its 24 scenes, bf16,
+   batch 2048, mask 0.5), two epochs: finite, falling, no block-kernel
+   launch; each epoch's capture seconds, its rate without them and the peak
+   memory, beside one epoch of the same run without ``--remat``; c.
+   ``cli.finetune --model HSIMAE-L`` in bf16 from b's ``params_final.pt`` on
+   the phase-4 scene, 10 epochs, ``--eval``: no launch in a dual step, 21
+   launches of ``fused_block_wgmma_d256`` a val batch and 126 in ``--eval``
+   (the others never), the ``--eval`` map against ``block_reference`` on the
+   same weights on >= 99.9% of pixels; d. both D 256 kernels at the val
+   pass's launch shapes (val batch 80 and 512), checked and timed like
+   phase 12a; e. three float32 HSIMAE-L dual steps on the card against the
+   CPU, held like phase 12b;
 7. (last) a ``kernels`` JSON line, with each kernel's launches on each path
    (counts set to 0 just before the path), the card's name and power limit,
    then ``{"ok": true, "device": {...}}``.
 
 Phases run in the order 1-6, 11, 8-10, 12, 13, 14, 15 (18c in its job), 18,
-16, 17, 7. Each run is cut in depth (epochs, seeds, grids) so that the
-whole takes about ten minutes on one H100.
+19, 16, 17, 7. Each run is cut in depth (epochs, seeds, grids) so that the
+whole takes about twelve minutes on one H100.
 """
 
 from __future__ import annotations
@@ -309,9 +331,13 @@ MASKED_TOL = {  # scaled error |x - ref| / max(1, |ref|); loss relative
 # phase 12: fine-tuning, the reference recipe on the phase-4 scene (16 classes, 10 labeled
 # pixels a class: 80 train, 80 val). The val pass's launch shapes at its batch of 80, and at
 # a full val batch of 512: name -> ([M, S, D], launches per val batch)
-FT_VAL_SHAPES = {
-    f"{name} val {b}": ((b * k, s, D_B), n) for b in (80, 512)
-    for name, k, s, n in (("blocks_1", 4, 9, 9), ("blocks_2", 9, 4, 9), ("fusion", 1, 36, 3))}
+def val_shapes(d: int) -> dict:
+    return {f"{name} val {b}": ((b * k, s, d), n) for b in (80, 512)
+            for name, k, s, n in (("blocks_1", 4, 9, 9), ("blocks_2", 9, 4, 9),
+                                  ("fusion", 1, 36, 3))}
+
+
+FT_VAL_SHAPES = val_shapes(D_B)
 DUAL_BATCH, DUAL_VALID, DUAL_UNLABELED = 32, 27, 43  # labeled 32, the last 5 padding
 DUAL_GRIDS = [(2, 4), (4, 2), (2, 4)]  # the two kept grids of mask ratio 0.8 on T 4 x L 9
 FT_CLASSES = 17  # the phase-4 scene's 16 classes and background
@@ -373,7 +399,9 @@ ZOO_ARGV = ["--synthetic", "--synthetic-size", "145", "--synthetic-bands", "200"
             "--selection-seeds", "1", "--test-seeds", "2", "--epochs", "5",
             "--scene-seed", "0", "--device", "cuda"]  # phase 4's scene
 ZOO_REPORT_KEYS = ["best_lr", "oa", "aa", "kappa", "per_seed_oa"]
-ZOO_TIMED_EPOCHS = 5  # 16c's timed run of each net: 2 steps an epoch, epoch 0 not timed
+# 16a/b also hold HiT's other token mixer (WeightedPermuteMLP), which no registry spec uses,
+# at the registry's HiT (widths, depth, patch 15)
+ZOO_WEIGHTED_HIT = "HiT weighted"
 # phase 17: SVM-RBF on the phase-4 scene (cli.benchmark's first test seed), then the quickstart
 SVM_ARGV = ZOO_ARGV + ["--models", "SVM-RBF"]  # 10 labels a class, 2 test seeds
 SVM_DEC_TOL = 1e-6  # 17a: decision values, card against CPU, scaled by the problem's largest
@@ -390,7 +418,12 @@ FUSED_K = 3
 FUSED_GRIDS = [(2, 9), (3, 6)]
 FUSED_SCENES = (2, 64)  # scenes of 64 x 64 px
 FUSED_STEPS = 16  # 18b/c: --fused-steps at phase 9's setting (an epoch of 14 steps: K 14)
-FUSED_PROFILED_REPLAYS = 3  # 18b: warm chunks timed, then one traced
+# phase 19: HSIMAE-L training. 19a: phase 18a's chunks at D 256, recomputing every block in
+# the backward pass, then with a bf16 first moment; 19b: the fused CLI at phase 9's setting
+# with both; 19c: fine-tuning from 19b, 19d: the D 256 kernels at its val shapes
+LARGE = "HSIMAE-L"
+LARGE_FUSED_FLAGS = ["--fused-steps", str(FUSED_STEPS), "--remat", "--adam-mu-dtype", "bfloat16"]
+FT_VAL_SHAPES_L = val_shapes(256)
 # the serving child: loads an artifact where hsimae_tpu_torch.models cannot be imported,
 # answers each request size, and prints one JSON line (launches, pack builds, timings)
 SERVE_CHILD = """
@@ -861,19 +894,20 @@ def dual_draws_to(d, dev):
                      keep_to(d.drop_keep_rec, dev))
 
 
-def dual_step_card_vs_cpu(smi_line: str, fb) -> dict:
-    """Phase 12b: three float32 HSIMAE-B dual steps on the card and the same
-    three on the CPU, from one seeded init, one labeled batch with a padded
-    tail, one unlabeled batch and injected draws (flips, both kept grids,
-    drop-path masks of both encodes); each loss and every final parameter
-    must agree, and the card's steps launch no block kernel."""
+def dual_step_card_vs_cpu(smi_line: str, fb, model_name: str = "HSIMAE-B") -> dict:
+    """Phases 12b (HSIMAE-B) and 19e (HSIMAE-L): three float32 dual steps
+    of ``model_name`` on the card and the same three on the CPU, from one seeded
+    init, one labeled batch with a padded tail, one unlabeled batch and
+    injected draws (flips, both kept grids, drop-path masks of both
+    encodes); each loss and every final parameter must agree, and the
+    card's steps launch no block kernel."""
     import torch
     from hsimae_tpu_torch.config import preset
     from hsimae_tpu_torch.models.hsimae import build_dual_vit
     from hsimae_tpu_torch.train.finetune import draw_dual, make_dual_step
     from hsimae_tpu_torch.train.optim import finetune_optimizer
 
-    cfg = preset("HSIMAE-B", compute_dtype=torch.float32)
+    cfg = preset(model_name, compute_dtype=torch.float32)
     g = torch.Generator().manual_seed(12)
     x = torch.rand(DUAL_BATCH, cfg.img_size, cfg.img_size, cfg.bands, generator=g)
     xu = torch.rand(DUAL_UNLABELED, cfg.img_size, cfg.img_size, cfg.bands, generator=g)
@@ -909,7 +943,7 @@ def dual_step_card_vs_cpu(smi_line: str, fb) -> dict:
     moved = max((card_params[k] - v).abs().max().item() for k, v in
                 build_dual_vit(cfg, FT_CLASSES, seed=0, device="cpu").named_parameters())
     ok = loss_rel <= STEP_LOSS_RTOL and param_err <= STEP_PARAM_TOL
-    row = {"phase": "dual_step_card_vs_cpu", "model": "HSIMAE-B", "dtype": "float32",
+    row = {"phase": "dual_step_card_vs_cpu", "model": model_name, "dtype": "float32",
            "batch": DUAL_BATCH, "valid": DUAL_VALID, "unlabeled": DUAL_UNLABELED,
            "grids": DUAL_GRIDS, "lr": [sched(k) for k in range(len(DUAL_GRIDS))],
            "card_losses_loss_rec": card_losses, "cpu_losses_loss_rec": cpu_losses,
@@ -918,14 +952,15 @@ def dual_step_card_vs_cpu(smi_line: str, fb) -> dict:
            "max_param_move": moved, "card_s": t_card, "card": smi_line, "ok": ok}
     print(json.dumps(row), flush=True)
     if not all(math.isfinite(v) for v in card_losses + cpu_losses) or not ok:
-        fail(f"dual steps on the card disagree with the CPU: {row}")
+        fail(f"{model_name} dual steps on the card disagree with the CPU: {row}")
     return row
 
 
 def cli_finetune(smi_line: str, fb, hsimae_model, dname: str, pretrained: Path,
-                 log_dir: Path) -> dict:
-    """Phases 12c (bfloat16) and 12d (float32): ``cli.finetune.main`` from
-    the bf16 pretrain's ``params_final.pt`` with ``--eval``. The loop's
+                 log_dir: Path, model_name: str = "HSIMAE-B") -> dict:
+    """Phases 12c (bfloat16) and 12d (float32), HSIMAE-B, and 19c (HSIMAE-L,
+    bfloat16): ``cli.finetune.main --model <model_name>`` from the bf16
+    pretrain's ``params_final.pt`` with ``--eval``. The loop's
     steps are wrapped to read the launch counts: each dual step launches no
     block kernel, each validation batch 21 of the dtype's kernel (counts set
     to 0 before each pass), ``--eval`` 21 a scene batch (counts set to 0
@@ -940,7 +975,7 @@ def cli_finetune(smi_line: str, fb, hsimae_model, dname: str, pretrained: Path,
     from hsimae_tpu_torch.train import finetune as ft
     from hsimae_tpu_torch.train.evaluate import build_classifier, predict_scene
 
-    own = MAIN_KERNEL[dname]
+    own = MAIN_KERNELS[model_name][dname]
     want = {k: 21 * (k == own) for k in KERNELS}
     launches = {"cli.finetune val": dict.fromkeys(KERNELS, 0),
                 "cli.finetune --eval": dict.fromkeys(KERNELS, 0)}
@@ -955,7 +990,7 @@ def cli_finetune(smi_line: str, fb, hsimae_model, dname: str, pretrained: Path,
             reset_counts(fb)
             out = step(*sa, **skw)
             if any(launch_counts(fb).values()):
-                fail(f"{dname} dual step launched a block kernel: {launch_counts(fb)}")
+                fail(f"{model_name} {dname} dual step launched a block kernel: {launch_counts(fb)}")
             seen["steps"] += 1
             return out
         return run
@@ -968,7 +1003,8 @@ def cli_finetune(smi_line: str, fb, hsimae_model, dname: str, pretrained: Path,
             out = ev(x, y, w)
             counts = launch_counts(fb)
             if counts != want:
-                fail(f"{dname} validation batch launched {counts}, expected 21 of {own} only")
+                fail(f"{model_name} {dname} validation batch launched {counts}, expected 21 of "
+                     f"{own} only")
             for k in KERNELS:
                 launches["cli.finetune val"][k] += counts[k]
             seen.update(val_batches=seen["val_batches"] + 1, model=model, ev=ev, batch=(x, y, w))
@@ -984,10 +1020,12 @@ def cli_finetune(smi_line: str, fb, hsimae_model, dname: str, pretrained: Path,
         return out
 
     epochs = FINETUNE_EPOCHS[dname]
-    argv = FINETUNE_ARGV + ["--epochs", str(epochs), "--pretrained", str(pretrained)]
+    argv = [model_name if a == "HSIMAE-B" else a for a in FINETUNE_ARGV]
+    argv += ["--epochs", str(epochs), "--pretrained", str(pretrained)]
     argv += [] if dname == "bfloat16" else ["--no-bf16"]
     log_dir.mkdir(parents=True, exist_ok=True)
-    log_path = log_dir / f"smoke_finetune_{dname}.log"
+    tag = dname if model_name == "HSIMAE-B" else f"{model_name}_{dname}"
+    log_path = log_dir / f"smoke_finetune_{tag}.log"
     ft.make_dual_step, ft.make_eval_metrics_step, cli.evaluate_scene = \
         counted_step, counted_ev, counted_eval
     torch.cuda.synchronize()
@@ -1006,11 +1044,11 @@ def cli_finetune(smi_line: str, fb, hsimae_model, dname: str, pretrained: Path,
     size = cli.build_parser().parse_args(argv).synthetic_size
     n_batches = math.ceil(size * size / EvalConfig().batch_size)
     if launches["cli.finetune --eval"] != {k: 21 * n_batches * (k == own) for k in KERNELS}:
-        fail(f"{dname} --eval launched {launches['cli.finetune --eval']}, expected "
+        fail(f"{model_name} {dname} --eval launched {launches['cli.finetune --eval']}, expected "
              f"{21 * n_batches} of {own} only")
     curves = [hist[k] for k in ("loss", "loss_rec", "val_loss")]
     if len(hist["loss"]) != epochs or not all(math.isfinite(v) for c in curves for v in c):
-        fail(f"{dname} fine-tuning losses not finite: {curves}")
+        fail(f"{model_name} {dname} fine-tuning losses not finite: {curves}")
 
     # one validation pass again, with the kernel weights rebuilt first and without
     model, val_ev, batch = seen["model"], seen["ev"], seen["batch"]
@@ -1045,7 +1083,7 @@ def cli_finetune(smi_line: str, fb, hsimae_model, dname: str, pretrained: Path,
     steady = hist["epoch_seconds"][1:] or hist["epoch_seconds"]
     steps_per_epoch = seen["steps"] // epochs
     vm, tm = res.val_metrics, ev.metrics
-    row = {"main_path": "cli.finetune", "model": "HSIMAE-B", "dtype": dname, "epochs": epochs,
+    row = {"main_path": "cli.finetune", "model": model_name, "dtype": dname, "epochs": epochs,
            "pretrained": pretrained.name, "dual_steps": seen["steps"],
            "steps_per_epoch": steps_per_epoch, "val_passes": len(hist["val_seconds"]),
            "val_batches": seen["val_batches"], "kernel": own,
@@ -1065,8 +1103,8 @@ def cli_finetune(smi_line: str, fb, hsimae_model, dname: str, pretrained: Path,
            "note": "synthetic scene, not the paper's numbers", "card": smi_line}
     print(json.dumps(row), flush=True)
     if agree < MIN_AGREEMENT:
-        fail(f"{dname} fine-tuned --eval map agrees with {row['reference']} on {agree:.5f} "
-             f"of pixels (< {MIN_AGREEMENT})")
+        fail(f"{model_name} {dname} fine-tuned --eval map agrees with {row['reference']} on "
+             f"{agree:.5f} of pixels (< {MIN_AGREEMENT})")
     torch.cuda.empty_cache()
     return launches
 
@@ -1495,13 +1533,9 @@ def serving(smi_line: str, fb, params_path: Path, runs: Path, gen, max_err: dict
     import torch
     from hsimae_tpu_torch.cli import evaluate as cli_evaluate
     from hsimae_tpu_torch.cli import export as cli_export
-    from hsimae_tpu_torch.config import EvalConfig, preset
+    from hsimae_tpu_torch.config import preset
     from hsimae_tpu_torch.serving import load_classifier
-    from hsimae_tpu_torch.train.evaluate import (
-        build_classifier,
-        classify_scene_artifact,
-        predict_scene,
-    )
+    from hsimae_tpu_torch.train.evaluate import build_classifier
 
     # ---- 14a. the kernels at the buckets' launch shapes ----
     dev = torch.device("cuda")
@@ -1517,8 +1551,6 @@ def serving(smi_line: str, fb, params_path: Path, runs: Path, gen, max_err: dict
     x = torch.rand(max(SERVE_NS), 9, 9, 32, generator=torch.Generator().manual_seed(14))
     xs = runs / "serve_x.npy"
     np.save(xs, x.numpy())
-    scene_args = cli_evaluate.build_parser().parse_args(SCENE_ARGV)
-    scene, gt, _ = cli_evaluate.prepare(scene_args)
     sizes, maps, children, export_s = {}, {}, {}, {}
     try:
         # ---- 14b. export through the CLI; each artifact's fresh process (14c) starts
@@ -1533,7 +1565,7 @@ def serving(smi_line: str, fb, params_path: Path, runs: Path, gen, max_err: dict
             export_s[variant] = time.perf_counter() - t0
             sizes[variant] = art.stat().st_size
             children[variant] = serve_child(art, xs, runs / f"serve_{variant}.npz")
-        # every fresh process has loaded before any serves: 14c-e then run on a quiet host
+        # every fresh process has loaded before any serves: 14c-d then run on a quiet host
         for variant, child in children.items():
             serve_child_loaded(child, variant)
         for variant, (flags, dname) in SERVE_VARIANTS.items():
@@ -1589,21 +1621,6 @@ def serving(smi_line: str, fb, params_path: Path, runs: Path, gen, max_err: dict
                                           + (["--no-bf16"] if dname == "float32" else []))
             agree = float((res.pred_map == res_p.pred_map).mean())
             maps[variant] = res.pred_map
-
-            # ---- 14e. warm scene through the artifact against predict_scene, in turns ----
-            ecfg = EvalConfig(batch_size=BATCH)
-            walls = {"artifact": [], "live": []}
-            for i in range(4):
-                for name, fn in (("artifact", lambda: classify_scene_artifact(scene, clf, ecfg)),
-                                 ("live", lambda: predict_scene(live, scene, ecfg))):
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    fn()
-                    torch.cuda.synchronize()
-                    if i:  # the first turn warms up
-                        walls[name].append(time.perf_counter() - t0)
-            art_s, live_s = (sorted(walls[k])[1] for k in ("artifact", "live"))  # medians of 3
-            n_pix = scene.shape[0] * scene.shape[1]
             row = {"main_path": "serving", "variant": variant, "model": "HSIMAE-B", "dtype": dname,
                    "flags": flags, "artifact_bytes": sizes[variant],
                    "export_s": export_s[variant],
@@ -1612,15 +1629,12 @@ def serving(smi_line: str, fb, params_path: Path, runs: Path, gen, max_err: dict
                    "max_scaled_logit_err": worst, "tol": TOL[dname],
                    "cuda_init_s": info["cuda_init_s"], "load_s": info["load_s"],
                    "load_note": "the fresh processes load beside 14b's exports and each "
-                                "other; all have loaded before 14c-e",
+                                "other; all have loaded before 14c-d",
                    "predict_1024_ms": info["predict_1024_ms"],
                    "serve_max_memory_allocated_bytes": info["max_memory_allocated_bytes"],
                    "scene_launches": counts[own], "scene_cli_wall_s": wall,
                    "scene_cli_max_memory_allocated_bytes": peak,
-                   "agreement_with_params_run": agree,
-                   "warm_artifact_pixels_per_s": n_pix / art_s,
-                   "warm_predict_scene_pixels_per_s": n_pix / live_s,
-                   "warm_walls_s": walls, "card": smi_line}
+                   "agreement_with_params_run": agree, "card": smi_line}
             print(json.dumps(row), flush=True)
             if agree < MIN_AGREEMENT:
                 fail(f"cli.evaluate --artifact ({variant}) agrees with --params on {agree:.5f} of "
@@ -2101,12 +2115,30 @@ def data_parallel(smi_line: str, fb, hsimae_model, runs: Path, log_dir: Path, sp
 
 
 def zoo_net(name: str, seed: int):
-    """(spec, bands, net on the CPU): the registry's net at PaviaU's widths,
-    initialised as flax does from ``seed``, its BatchNorm statistics drawn."""
+    """(spec, bands, net on the CPU): the registry's net at PaviaU's widths
+    (``HiT weighted``: the registry's HiT with ``use_conv_mixer=False`` at its
+    patch size), initialised as flax does from ``seed``, its BatchNorm
+    statistics drawn."""
+    import dataclasses
+
     import torch
     from hsimae_tpu_torch.bench import harness, registry
+    from hsimae_tpu_torch.models.baselines import HiT
 
-    spec = registry.get_baseline_spec(name, ZOO_DATASET)
+    if name == ZOO_WEIGHTED_HIT:
+        spec = registry.get_baseline_spec("HiT", ZOO_DATASET)
+        ps, build = spec.patch_size, spec.build
+
+        def weighted(b, n, d):
+            with torch.device("meta"):  # the registry net's depth, read off its stages
+                stages = build(b, n, d).network
+            layers = tuple(len(s) for s in stages if isinstance(s, torch.nn.ModuleList))
+            return HiT(bands=b, num_classes=n, layers=layers, use_conv_mixer=False,
+                       patch_size=ps)
+
+        spec = dataclasses.replace(spec, name=name, build=weighted)
+    else:
+        spec = registry.get_baseline_spec(name, ZOO_DATASET)
     bands = spec.pca_nc or registry.DATASETS[ZOO_DATASET]["bands"]
     model = harness.build_model(spec, bands, ZOO_CLASSES, seed=seed, device="cpu")
     g = torch.Generator().manual_seed(seed + 1)
@@ -2155,19 +2187,17 @@ def baseline_zoo(smi_line: str, fb) -> dict:
     one harness train step), then ``cli.benchmark`` over all ten. Returns
     the benchmark path's launches of each kernel (0 expected)."""
     import copy
-    import dataclasses
 
     import torch
     from hsimae_tpu_torch.bench import harness, registry
     from hsimae_tpu_torch.cli import benchmark as bench_cli
-    from hsimae_tpu_torch.data.pipeline import ScenePatchSource, augment_flips, batch_indices
-    from hsimae_tpu_torch.data.synthetic import make_synthetic_scene
+    from hsimae_tpu_torch.data.pipeline import augment_flips
     from hsimae_tpu_torch.models.baselines.common import MaxPool2d
 
     t_phase = time.perf_counter()
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(16)
-    for name in registry.ALL_BASELINES:
+    for name in [*registry.ALL_BASELINES, ZOO_WEIGHTED_HIT]:
         t0 = time.perf_counter()
         spec, bands, model = zoo_net(name, seed=16)
         ps = spec.patch_size
@@ -2241,49 +2271,44 @@ def baseline_zoo(smi_line: str, fb) -> dict:
         del card, before, ref64
         torch.cuda.empty_cache()
 
-    # ---- 16c. cli.benchmark over all ten nets, then one timed run of each ----
+    # ---- 16c. cli.benchmark over all ten nets, every logit of each net's scene
+    # evaluations (its test runs') checked finite as the CLI runs them ----
+    finite = {}  # net -> one device flag a scene batch
+    evaluating = []  # the net whose scene evaluation is running
+    evaluate, eval_logits = bench_cli.evaluate_baseline, harness.eval_logits
+
+    def checked_evaluate(run, scene_p, test_gt, spec, *a, **kw):
+        evaluating.append(spec.name)
+        try:
+            return evaluate(run, scene_p, test_gt, spec, *a, **kw)
+        finally:
+            evaluating.pop()
+
+    def checked_logits(model, x):
+        out = eval_logits(model, x)
+        if evaluating:
+            finite.setdefault(evaluating[-1], []).append(torch.isfinite(out).all())
+        return out
+
     reset_counts(fb)
     t0 = time.perf_counter()
-    report = bench_cli.main(ZOO_ARGV + ["--models", *registry.ALL_BASELINES])
-    torch.cuda.synchronize()
+    bench_cli.evaluate_baseline, harness.eval_logits = checked_evaluate, checked_logits
+    try:
+        report = bench_cli.main(ZOO_ARGV + ["--models", *registry.ALL_BASELINES])
+        torch.cuda.synchronize()
+    finally:
+        bench_cli.evaluate_baseline, harness.eval_logits = evaluate, eval_logits
     cli_s = time.perf_counter() - t0
     for name in registry.ALL_BASELINES:
         if list(report.get(name, {})) != ZOO_REPORT_KEYS:
             fail(f"16c: cli.benchmark's report for {name} lacks keys: {report.get(name)}")
-    # the train-step ms and the full-scene pixels/s: one train_baseline and one
-    # evaluate_baseline of each net on the CLI's scene, its convs already warm
-    args = bench_cli.build_parser().parse_args(ZOO_ARGV)
-    scene, gt = make_synthetic_scene(args.synthetic_size, args.synthetic_size,
-                                     bands=args.synthetic_bands,
-                                     n_classes=args.synthetic_classes, seed=args.scene_seed)
-    n_classes = int(gt.max()) + 1
-    for name in registry.ALL_BASELINES:
-        spec = dataclasses.replace(registry.get_baseline_spec(name, args.dataset),
-                                   epochs=ZOO_TIMED_EPOCHS)
-        run, test_gt, scene_p = harness.train_baseline(
-            scene, gt, spec, lr=args.lr_grid[0], samples_per_class=args.samples_per_class,
-            seed=args.seed, device=dev)
-        h = run.history  # epoch 0 warms up
-        step_ms = 1e3 * sum(h["train_seconds"][1:]) / sum(h["train_steps"][1:])
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        harness.evaluate_baseline(run, scene_p, test_gt, spec, n_classes, device=dev)
-        torch.cuda.synchronize()
-        eval_s = time.perf_counter() - t
-        model = harness.build_model(spec, scene_p.shape[-1], n_classes, run.state, device=dev)
-        source = ScenePatchSource(scene_p, spec.patch_size, device=dev)
-        finite = torch.stack([torch.isfinite(harness.eval_logits(
-            model, source.gather_pixels(chunk))).all() for chunk, _ in batch_indices(
-                test_gt.size, 2048, shuffle=False)]).all()
-        if not bool(finite):
-            fail(f"16c: {name} gave a non-finite logit on the scene")
-        print(json.dumps({"phase": "zoo cli.benchmark", "model": name, "train_step_ms": step_ms,
-                          "train_steps_timed": sum(h["train_steps"][1:]),
-                          "scene_pixels_per_s": test_gt.size / eval_s, "scene_eval_s": eval_s,
+        if name not in finite or not bool(torch.stack(finite[name]).all()):
+            fail(f"16c: {name} gave a non-finite logit on the scene "
+                 f"({len(finite.get(name, []))} batches checked)")
+        print(json.dumps({"phase": "zoo cli.benchmark", "model": name,
+                          "scene_batches_checked_finite": len(finite[name]),
                           "oa": report[name]["oa"], "per_seed_oa": report[name]["per_seed_oa"],
                           "card": smi_line}), flush=True)
-        del model
-        torch.cuda.empty_cache()
     launches = launch_counts(fb)
     if any(launches.values()):
         fail(f"16c: the zoo path launched a fused-block kernel: {launches}")
@@ -2447,28 +2472,17 @@ def quickstart_path(smi_line: str, fb, workdir: Path) -> dict:
 # ----------------------------- phase 18: fused pretraining -----------------------------
 
 
-def fused_chunk_card_vs_eager(smi_line: str, fb) -> dict:
-    """Phase 18a: float32 HSIMAE-B at phase 8's batch, two chunks of
-    ``FUSED_K`` steps (one on each kept grid, injected draws) through the
-    captured chunk on the card, against the same six eager steps on the card
-    and the same chunks on the CPU; then a gloo group on the card, which
-    the chunk must refuse."""
+def fused_chunk_inputs(cfg):
+    """Phase 18a's and 19a's inputs: random 32-band scenes, the cut-index
+    rows of one chunk of ``FUSED_K`` steps on each kept grid of
+    ``FUSED_GRIDS`` at phase 8's batch, and each step's draws (flips, kept
+    grid; drop-path masks where ``cfg`` has drop-path), drawn on the CPU."""
     import numpy as np
     import torch
-    import torch.distributed as dist
-    from hsimae_tpu_torch.config import preset
-    from hsimae_tpu_torch.data.pipeline import MultiScenePatchSource
     from hsimae_tpu_torch.data.windows import build_pretrain_cut_index
     from hsimae_tpu_torch.models.hsimae import build_hsimae
-    from hsimae_tpu_torch.parallel.mesh import make_mesh, shutdown_distributed
-    from hsimae_tpu_torch.train.optim import pretrain_optimizer
-    from hsimae_tpu_torch.train.pretrain import (
-        draw_pretrain,
-        make_fused_pretrain_chunk,
-        make_pretrain_step,
-    )
+    from hsimae_tpu_torch.train.pretrain import draw_pretrain
 
-    cfg = preset("HSIMAE-B", compute_dtype=torch.float32)
     n_scenes, px = FUSED_SCENES
     scenes = list(np.random.default_rng(9).random((n_scenes, px, px, cfg.bands),
                                                   dtype=np.float32))
@@ -2480,39 +2494,75 @@ def fused_chunk_card_vs_eager(smi_line: str, fb) -> dict:
     gen = torch.Generator().manual_seed(11)
     draws = [[draw_pretrain(probe, STEP_BATCH, lt, ll, gen, "cpu") for _ in range(FUSED_K)]
              for lt, ll in FUSED_GRIDS]
+    return scenes, locs, draws
 
-    def run(device, fused):
-        src = MultiScenePatchSource(scenes, patch_size=cfg.img_size, device=device)
-        model = build_hsimae(cfg, seed=0, device=device)
-        opt, sched = pretrain_optimizer(model, 5e-3, 0.05, total_steps=STEP_TOTAL)
-        chunk = make_fused_pretrain_chunk(model, opt, sched, src) if fused else None
-        step = None if fused else make_pretrain_step(model, opt, sched)
-        losses = []
-        for (lt, ll), rows, ds in zip(FUSED_GRIDS, locs, draws):
-            ds = [to_device(d, device) for d in ds]
-            if fused:
-                losses.append(chunk(rows, lt, ll, draws=ds).item())
-            else:
-                losses.append(float(np.mean([step(src.gather(r), lt, ll, draws=d).item()
-                                             for r, d in zip(rows, ds)])))
-        params = {k: v.detach().cpu() for k, v in model.named_parameters()}
-        return losses, params, opt.count, (chunk.capture_seconds if fused else None)
 
+def fused_chunk_run(cfg, inputs, device, fused: bool, mu_dtype=None):
+    """The chunks of :func:`fused_chunk_inputs` on ``device``: through
+    ``make_fused_pretrain_chunk`` (``fused``) or as eager steps, from one
+    seeded init -> (mean loss a chunk, final parameters on the CPU, the
+    optimizer's update count, the capture seconds by kept grid or None)."""
+    import numpy as np
+    from hsimae_tpu_torch.data.pipeline import MultiScenePatchSource
+    from hsimae_tpu_torch.models.hsimae import build_hsimae
+    from hsimae_tpu_torch.train.optim import pretrain_optimizer
+    from hsimae_tpu_torch.train.pretrain import make_fused_pretrain_chunk, make_pretrain_step
+
+    scenes, locs, draws = inputs
+    src = MultiScenePatchSource(scenes, patch_size=cfg.img_size, device=device)
+    model = build_hsimae(cfg, seed=0, device=device)
+    opt, sched = pretrain_optimizer(model, 5e-3, 0.05, total_steps=STEP_TOTAL, mu_dtype=mu_dtype)
+    chunk = make_fused_pretrain_chunk(model, opt, sched, src) if fused else None
+    step = None if fused else make_pretrain_step(model, opt, sched)
+    losses = []
+    for (lt, ll), rows, ds in zip(FUSED_GRIDS, locs, draws):
+        ds = [to_device(d, device) for d in ds]
+        if fused:
+            losses.append(chunk(rows, lt, ll, draws=ds).item())
+        else:
+            losses.append(float(np.mean([step(src.gather(r), lt, ll, draws=d).item()
+                                         for r, d in zip(rows, ds)])))
+    params = {k: v.detach().cpu() for k, v in model.named_parameters()}
+    capture_s = None if chunk is None else {f"{lt}x{ll}": v for (lt, ll, _), v in
+                                            chunk.capture_seconds.items()}
+    return losses, params, opt.count, capture_s
+
+
+def scaled_param_err(a: dict, b: dict) -> float:
+    """max over every parameter of ``|a - b| / max(1, |b|)``."""
+    return max(((a[k] - v).abs() / v.abs().clamp(min=1.0)).max().item() for k, v in b.items())
+
+
+def fused_chunk_card_vs_eager(smi_line: str, fb) -> dict:
+    """Phase 18a: float32 HSIMAE-B at phase 8's batch, two chunks of
+    ``FUSED_K`` steps (one on each kept grid, injected draws) through the
+    captured chunk on the card, against the same six eager steps on the card
+    and the same chunks on the CPU; then a gloo group on the card, which
+    the chunk must refuse."""
+    import torch
+    import torch.distributed as dist
+    from hsimae_tpu_torch.config import preset
+    from hsimae_tpu_torch.data.pipeline import MultiScenePatchSource
+    from hsimae_tpu_torch.models.hsimae import build_hsimae
+    from hsimae_tpu_torch.parallel.mesh import make_mesh, shutdown_distributed
+    from hsimae_tpu_torch.train.optim import pretrain_optimizer
+    from hsimae_tpu_torch.train.pretrain import make_fused_pretrain_chunk
+
+    cfg = preset("HSIMAE-B", compute_dtype=torch.float32)
+    inputs = fused_chunk_inputs(cfg)
+    scenes, locs, _ = inputs
     reset_counts(fb)
     t0 = time.perf_counter()
-    card, card_params, count, capture_s = run("cuda", True)
+    card, card_params, count, capture_s = fused_chunk_run(cfg, inputs, "cuda", True)
     t_card = time.perf_counter() - t0
     launches = launch_counts(fb)
-    eager, eager_params, eager_count, _ = run("cuda", False)
-    cpu, cpu_params, _, _ = run("cpu", True)
-
-    def scaled(a, b):
-        return max(((a[k] - v).abs() / v.abs().clamp(min=1.0)).max().item() for k, v in b.items())
+    eager, eager_params, eager_count, _ = fused_chunk_run(cfg, inputs, "cuda", False)
+    cpu, cpu_params, _, _ = fused_chunk_run(cfg, inputs, "cpu", True)
 
     loss_rel = {name: max(abs(a - b) / abs(b) for a, b in zip(card, other))
                 for name, other in (("eager_card", eager), ("chunk_cpu", cpu))}
-    param_err = {"eager_card": scaled(card_params, eager_params),
-                 "chunk_cpu": scaled(card_params, cpu_params)}
+    param_err = {"eager_card": scaled_param_err(card_params, eager_params),
+                 "chunk_cpu": scaled_param_err(card_params, cpu_params)}
 
     # a gloo group on the card: its collectives cannot be captured, so the chunk must refuse
     refused = None
@@ -2539,8 +2589,7 @@ def fused_chunk_card_vs_eager(smi_line: str, fb) -> dict:
            "batch": STEP_BATCH, "k": FUSED_K, "grids": FUSED_GRIDS, "chunk_losses": card,
            "eager_card_losses": eager, "chunk_cpu_losses": cpu, "max_loss_rel": loss_rel,
            "loss_rtol": STEP_LOSS_RTOL, "max_param_scaled_err": param_err,
-           "param_tol": STEP_PARAM_TOL, "updates": count,
-           "capture_s": {f"{lt}x{ll}": v for (lt, ll, _), v in capture_s.items()},
+           "param_tol": STEP_PARAM_TOL, "updates": count, "capture_s": capture_s,
            "card_s": t_card, "launches": launches, "gloo_refused": refused, "card": smi_line,
            "ok": ok}
     print(json.dumps(row), flush=True)
@@ -2553,41 +2602,20 @@ def fused_chunk_card_vs_eager(smi_line: str, fb) -> dict:
     return row
 
 
-def chunk_busy_share(prof, wall_ms: float) -> dict:
-    """Device busy ms of a traced window (every CUDA kernel and copy's own
-    time) and its share of the window's wall time."""
-    from torch.autograd import DeviceType
-
-    busy, events = 0.0, 0
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA:
-            busy += ev.self_device_time_total / 1e3
-            events += ev.count
-    return {"wall_ms": wall_ms, "device_busy_ms": busy, "device_busy_share": busy / wall_ms,
-            "device_events": events}
-
-
 def cli_fused_pretrain(smi_line: str, fb, workdir: Path, eager_row: dict) -> dict:
     """Phase 18b: ``cli.pretrain --fused-steps 16`` at phase 9's setting
     (HSIMAE-B, bf16, batch 2048): two epochs, a run stopped after epoch 1 and
     resumed by the CLI, the warm rate beside phase 9's eager rate, peak
-    memory; a fresh run with the background writer and ``--profile``; then,
-    in bf16 and float32, one chunk of ``FUSED_STEPS`` built as
-    the loop builds it: its capture seconds, warm chunks against as many
-    warm eager steps, peak memory, and (bf16) the device's busy share in a
-    ``torch.profiler`` trace of one chunk."""
-    import numpy as np
+    memory; a fresh run with the background writer and ``--profile``; then
+    one float32 chunk of ``FUSED_STEPS`` built as the loop builds it, its
+    capture and one replay: finite losses, no block-kernel launch. (That
+    chunk timed against as many warm eager steps, in both dtypes, with a
+    trace of the device's busy share: ``scripts/time_fused_chunk.py``.)"""
     import torch
     from hsimae_tpu_torch.cli import pretrain as cli
     from hsimae_tpu_torch.config import preset
-    from hsimae_tpu_torch.models.hsimae import build_hsimae
     from hsimae_tpu_torch.models.masking import choose_grid_shape
-    from hsimae_tpu_torch.train.optim import pretrain_optimizer
-    from hsimae_tpu_torch.train.pretrain import (
-        make_fused_pretrain_chunk,
-        make_pretrain_step,
-        run_pretraining,
-    )
+    from hsimae_tpu_torch.train.pretrain import run_pretraining
 
     shutil.rmtree(workdir, ignore_errors=True)
     eager_spe = eager_row["steps_per_epoch"]
@@ -2666,80 +2694,33 @@ def cli_fused_pretrain(smi_line: str, fb, workdir: Path, eager_row: dict) -> dic
     if rel_bg > RESUME_RTOL or kept != [spe, 2 * spe] or traces != ["epoch_1.trace.json"]:
         fail(f"the fused run with background checkpoints and --profile is wrong: {row_bg}")
 
-    # one chunk of FUSED_STEPS built as the loop builds it, in each dtype: as many warm
-    # eager steps (gather + step each) timed first, then the capture and warm chunks; last, a
-    # trace of one bf16 chunk
+    # one float32 chunk of FUSED_STEPS at the full batch, built as the loop builds it: its
+    # capture and one replay, a finite loss and no block-kernel launch (the CLI runs above
+    # are bf16)
+    import numpy as np
+    from hsimae_tpu_torch.models.hsimae import build_hsimae
+    from hsimae_tpu_torch.train.optim import pretrain_optimizer
+    from hsimae_tpu_torch.train.pretrain import make_fused_pretrain_chunk
+
+    torch.cuda.empty_cache()
     locs_dev = torch.as_tensor(index.locs, dtype=torch.int64).to("cuda")
     rows = locs_dev[torch.as_tensor(np.random.default_rng(12).integers(
         0, len(index), (FUSED_STEPS, PRETRAIN_BATCH))).to("cuda")]
-    chunk_patches = FUSED_STEPS * PRETRAIN_BATCH
-    mid = FUSED_PROFILED_REPLAYS // 2
-
-    def timed(fn):
-        times = []
-        for _ in range(FUSED_PROFILED_REPLAYS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append(1e3 * (time.perf_counter() - t0))
-        return times
-
-    def trained(cfg):
-        model = build_hsimae(cfg, seed=pcfg.seed, device="cuda")
-        return (model, *pretrain_optimizer(model, pcfg.lr, pcfg.weight_decay, 10 * FUSED_STEPS))
-
-    traced = None
-    for dtype in (torch.bfloat16, torch.float32):
-        cfg = mcfg.replace(compute_dtype=dtype)
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts(fb)
-        step = make_pretrain_step(*trained(cfg), seed=pcfg.seed)
-
-        def eager():
-            for i in range(FUSED_STEPS):
-                step(source.gather(rows[i]), *MASKED_GRIDS[0])
-
-        eager()  # warm-up
-        eager_ms = timed(eager)
-        peak_eager = torch.cuda.max_memory_allocated()
-        del step
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        chunk = make_fused_pretrain_chunk(*trained(cfg), source, seed=pcfg.seed)
-        chunk(rows, *MASKED_GRIDS[0])  # the capture
-        fused_ms = timed(lambda: chunk(rows, *MASKED_GRIDS[0]))
-        loss = chunk(rows, *MASKED_GRIDS[0]).item()
-        fused_med, eager_med = sorted(fused_ms)[mid], sorted(eager_ms)[mid]
-        row_c = {"check": "one fused chunk against eager steps", "model": "HSIMAE-B",
-                 "dtype": str(dtype).split(".")[1], "k": FUSED_STEPS, "batch": PRETRAIN_BATCH,
-                 "grid": MASKED_GRIDS[0],
-                 "capture_s": {f"{lt}x{ll}": v for (lt, ll, _), v in
-                               chunk.capture_seconds.items()},
-                 "chunk_ms": fused_ms, "eager_ms": eager_ms,
-                 "fused_step_ms": fused_med / FUSED_STEPS, "eager_step_ms": eager_med / FUSED_STEPS,
-                 "fused_patches_per_sec": chunk_patches / (fused_med / 1e3),
-                 "eager_patches_per_sec": chunk_patches / (eager_med / 1e3),
-                 "speedup": eager_med / fused_med, "loss": loss,
-                 "max_memory_allocated_bytes_eager": peak_eager,
-                 "max_memory_allocated_bytes_fused": torch.cuda.max_memory_allocated(),
-                 "launches": launch_counts(fb), "card": smi_line}
-        print(json.dumps(row_c), flush=True)
-        if not math.isfinite(loss) or any(row_c["launches"].values()):
-            fail(f"the fused chunk's loss is not finite or it launched a block kernel: {row_c}")
-        if dtype == torch.bfloat16:
-            traced = chunk
-        del chunk
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        traced(rows, *MASKED_GRIDS[0])
-        torch.cuda.synchronize()
-        traced_ms = 1e3 * (time.perf_counter() - t0)
-    print(json.dumps({"check": "trace of one bf16 fused chunk", "k": FUSED_STEPS,
-                      **chunk_busy_share(prof, traced_ms), "card": smi_line}), flush=True)
-    del traced
+    model = build_hsimae(mcfg.replace(compute_dtype=torch.float32), seed=pcfg.seed,
+                         device="cuda")
+    opt, sched = pretrain_optimizer(model, pcfg.lr, pcfg.weight_decay, 10 * FUSED_STEPS)
+    reset_counts(fb)
+    chunk = make_fused_pretrain_chunk(model, opt, sched, source, seed=pcfg.seed)
+    losses_f32 = [chunk(rows, *MASKED_GRIDS[0]).item() for _ in range(2)]
+    row_f = {"check": "one float32 fused chunk", "k": FUSED_STEPS, "batch": PRETRAIN_BATCH,
+             "grid": MASKED_GRIDS[0], "losses": losses_f32,
+             "capture_s": {f"{lt}x{ll}": v for (lt, ll, _), v in chunk.capture_seconds.items()},
+             "launches": launch_counts(fb), "card": smi_line}
+    print(json.dumps(row_f), flush=True)
+    if not all(math.isfinite(v) for v in losses_f32) or any(row_f["launches"].values()):
+        fail(f"the float32 fused chunk's loss is not finite or it launched a block kernel: "
+             f"{row_f}")
+    del chunk, opt, model, locs_dev, rows
     del source
     torch.cuda.empty_cache()
     return row
@@ -2764,6 +2745,146 @@ def fused_nccl(smi_line: str, rank: dict, fused_row: dict) -> None:
     if rank["backend"] != "nccl" or len(loss) != 2 or rel > RESUME_RTOL \
             or any(rank["fused_launches"].values()):
         fail(f"the fused one-rank NCCL run disagrees with phase 18b: {row}")
+
+
+# ------------------------------ phase 19: HSIMAE-L training ------------------------------
+
+
+def large_fused_chunks(smi_line: str, fb) -> dict:
+    """Phase 19a: float32 HSIMAE-L at phase 8's batch, phase 18a's two
+    chunks of ``FUSED_K`` steps (injected draws). The chunk recomputing
+    every block in the backward pass (``remat``) on the card against the
+    same six eager steps without it on the card and the same chunks on the
+    CPU; then, with a bf16 first moment, the chunk (remat) against the
+    eager steps (without) on the card. Loss 1e-4 relative, parameters
+    ``1e-4 * max(1, |p|)``; no block-kernel launch."""
+    import torch
+    from hsimae_tpu_torch.config import preset
+
+    cfg = preset(LARGE, compute_dtype=torch.float32)
+    remat = cfg.replace(remat=True)
+    inputs = fused_chunk_inputs(cfg)
+    reset_counts(fb)
+    t0 = time.perf_counter()
+    card, card_params, count, capture_s = fused_chunk_run(remat, inputs, "cuda", True)
+    t_card = time.perf_counter() - t0
+    eager, eager_params, eager_count, _ = fused_chunk_run(cfg, inputs, "cuda", False)
+    mu, mu_params, mu_count, mu_capture_s = fused_chunk_run(remat, inputs, "cuda", True,
+                                                            torch.bfloat16)
+    mu_eager, mu_eager_params, _, _ = fused_chunk_run(cfg, inputs, "cuda", False, torch.bfloat16)
+    launches = launch_counts(fb)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cpu, cpu_params, _, _ = fused_chunk_run(remat, inputs, "cpu", True)
+    t_cpu = time.perf_counter() - t0
+
+    def rel(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    loss_rel = {"eager_card": rel(card, eager), "chunk_cpu": rel(card, cpu),
+                "bf16_mu_eager_card": rel(mu, mu_eager)}
+    param_err = {"eager_card": scaled_param_err(card_params, eager_params),
+                 "chunk_cpu": scaled_param_err(card_params, cpu_params),
+                 "bf16_mu_eager_card": scaled_param_err(mu_params, mu_eager_params)}
+    ok = (max(loss_rel.values()) <= STEP_LOSS_RTOL and max(param_err.values()) <= STEP_PARAM_TOL
+          and count == eager_count == mu_count == len(FUSED_GRIDS) * FUSED_K)
+    row = {"phase": "large_fused_chunks", "model": LARGE, "dtype": "float32",
+           "batch": STEP_BATCH, "k": FUSED_K, "grids": FUSED_GRIDS,
+           "chunk": "remat", "eager": "no remat", "chunk_losses": card,
+           "eager_card_losses": eager, "chunk_cpu_losses": cpu,
+           "bf16_mu_chunk_losses": mu, "bf16_mu_eager_card_losses": mu_eager,
+           "max_loss_rel": loss_rel, "loss_rtol": STEP_LOSS_RTOL,
+           "max_param_scaled_err": param_err, "param_tol": STEP_PARAM_TOL, "updates": count,
+           "capture_s": capture_s, "bf16_mu_capture_s": mu_capture_s, "card_s": t_card,
+           "cpu_s": t_cpu, "launches": launches, "card": smi_line, "ok": ok}
+    print(json.dumps(row), flush=True)
+    if not all(math.isfinite(v) for v in card + eager + cpu + mu + mu_eager) or not ok:
+        fail(f"the HSIMAE-L remat chunk disagrees with eager steps or the CPU: {row}")
+    if any(launches.values()):
+        fail(f"the HSIMAE-L chunks launched a block kernel: {launches}")
+    return row
+
+
+def large_cli_pretrain(smi_line: str, fb, workdir: Path, eager_row: dict) -> dict:
+    """Phase 19b: ``cli.pretrain --model HSIMAE-L`` at phase 9's setting (bf16,
+    batch 2048, mask 0.5) with ``--fused-steps 16 --remat --adam-mu-dtype
+    bfloat16``: two epochs (finite, the second below the first, no block
+    kernel launched), each epoch's capture seconds, its rate without them
+    and the peak memory; then one epoch of the same run without ``--remat``
+    (the same numbers beside). Returns the row, with the remat run's
+    ``params_final.pt`` (19c's pretrained weights)."""
+    import torch
+    from hsimae_tpu_torch.cli import pretrain as cli
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    eager_spe = eager_row["steps_per_epoch"]
+    k = min(FUSED_STEPS, eager_spe)
+    spe = math.ceil(eager_spe / k) * k
+    argv = [LARGE if a == "HSIMAE-B" else a for a in PRETRAIN_ARGV]
+    argv += ["--checkpoint-every", str(spe), *LARGE_FUSED_FLAGS]
+    runs = {}
+    for tag, run_argv in (("remat", argv),
+                          ("no_remat", [a for a in argv if a != "--remat"] + ["--epochs", "1"])):
+        reset_counts(fb)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, hist = cli.main(run_argv + ["--workdir", str(workdir / tag)])
+        torch.cuda.synchronize()
+        counts = launch_counts(fb)
+        if any(counts.values()):
+            fail(f"HSIMAE-L fused pretraining ({tag}) launched a block kernel: {counts}")
+        patches = spe * PRETRAIN_BATCH
+        warm = [patches / (patches / r - c) for r, c in zip(hist["patches_per_sec"],
+                                                            hist["capture_seconds"])]
+        runs[tag] = {"epoch_loss": hist["epoch_loss"], "patches_per_sec": hist["patches_per_sec"],
+                     "capture_seconds_by_epoch": hist["capture_seconds"],
+                     "patches_per_sec_without_capture": warm,
+                     "fused_step_ms_without_capture": [1e3 * PRETRAIN_BATCH / w for w in warm],
+                     "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+                     "run_s": time.perf_counter() - t0}
+    row = {"main_path": "cli.pretrain --model HSIMAE-L --fused-steps --remat", "model": LARGE,
+           "dtype": "bfloat16", "batch": PRETRAIN_BATCH, "flags": LARGE_FUSED_FLAGS, "k": k,
+           "steps_per_epoch_padded": spe, "cuts": eager_row["cuts"], "remat": runs["remat"],
+           "without_remat_one_epoch": runs["no_remat"], "kernel_launches": 0,
+           "params_final": str(workdir / "remat" / "params_final.pt"), "card": smi_line}
+    print(json.dumps(row), flush=True)
+    losses = runs["remat"]["epoch_loss"]
+    if len(losses) != 2 or not all(math.isfinite(v) for v in losses) or not losses[1] < losses[0]:
+        fail(f"HSIMAE-L fused pretraining epoch losses not finite and falling: {losses}")
+    if not all(math.isfinite(v) for v in runs["no_remat"]["epoch_loss"]):
+        fail(f"HSIMAE-L fused pretraining without remat: loss not finite: {runs['no_remat']}")
+    return row
+
+
+def large_training(smi_line: str, fb, hsimae_model, runs: Path, log_dir: Path,
+                   eager_row: dict, gen, max_err: dict) -> dict:
+    """Phase 19 (module docstring): 19a-e in order. Returns the launches per
+    kernel on 19b's and 19c's paths."""
+    import torch
+
+    t_phase = time.perf_counter()
+    large_fused_chunks(smi_line, fb)
+    torch.cuda.empty_cache()
+    pre = large_cli_pretrain(smi_line, fb, runs / "large", eager_row)
+    torch.cuda.empty_cache()
+    ft = cli_finetune(smi_line, fb, hsimae_model, "bfloat16", Path(pre["params_final"]), log_dir,
+                      model_name=LARGE)
+    shutil.rmtree(runs / "large", ignore_errors=True)
+    dev = torch.device("cuda")
+    for dtype, dname in ((torch.float32, "float32"), (torch.bfloat16, "bfloat16")):
+        for name, (shape, count) in FT_VAL_SHAPES_L.items():
+            row, err = time_case(fb, dtype, dname, name, shape, gen, dev, model=LARGE,
+                                 path="cli.finetune val", launches_per_val_batch=count)
+            max_err[row["kernel"]] = max(max_err[row["kernel"]], err)
+        torch.cuda.empty_cache()
+    dual_step_card_vs_cpu(smi_line, fb, model_name=LARGE)
+    torch.cuda.empty_cache()
+    print(json.dumps({"phase": "hsimae_l_training", "seconds": time.perf_counter() - t_phase,
+                      "card": smi_line}), flush=True)
+    return {f"cli.pretrain {LARGE} {' '.join(LARGE_FUSED_FLAGS)}": dict.fromkeys(KERNELS, 0),
+            **{path.replace("cli.finetune", f"cli.finetune {LARGE}"): n
+               for path, n in ft.items()}}
 
 
 def main() -> int:
@@ -2899,6 +3020,10 @@ def main() -> int:
     print(json.dumps({"phase": "fused_pretraining", "seconds": time.perf_counter() - t_phase,
                       "note": "18a and 18b; 18c ran in 15d's job", "card": smi_line}),
           flush=True)
+
+    # ---- 19. HSIMAE-L training: remat chunks, the fused CLI, fine-tuning, val shapes ----
+    launches.update(large_training(smi_line, fb, hsimae_model, runs, root / "chiprun_out",
+                                   pretrain_row, gen, max_err))
     shutil.rmtree(runs, ignore_errors=True)
 
     # ---- 16. the baseline zoo: card against CPU, then cli.benchmark ----

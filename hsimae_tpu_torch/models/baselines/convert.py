@@ -16,7 +16,10 @@ Conv2d's input channels, FDSSC's 3-D kernels back to Conv1d/Conv2d and its
 scalar PReLU slope to ``[1]``, GSC-ViT's ChanLayerNorm ``[1, C, 1, 1]`` and
 Conv1d-as-Dense, HiT's dynamic-conv bank transpose, DCTN's GroupNorm maps.
 HiT's ``embed_proj`` (the JAX zoo's own layer, absent from the reference,
-so its converter has no rule for it) maps as a Linear.
+so its converter has no rule for it) maps as a Linear, and so do the Dense
+kernels of its WeightedPermuteMLP (``use_conv_mixer=False``, which the JAX
+converter does not cover); the rank of ``attn/mlp_c/kernel`` tells the two
+mixers apart (4-D: the conv mixer, 2-D: the weighted one).
 
 ``from_jax_zoo(name, variables)`` takes a flax ``{"params",
 "batch_stats"}`` tree of arrays (numpy or anything ``np.asarray`` reads);
@@ -279,9 +282,13 @@ def _hit(t: _Inverse):
     blocks, downs = _stages(t)
     for p, blk in blocks:
         t.ln(f"{p}.norm1", blk, "norm1")
-        t.conv(f"{p}.attn.mlp_c.0", blk, "attn", "mlp_c")
-        t.conv(f"{p}.attn.mlp_h.0", blk, "attn", "mlp_h")
-        t.conv(f"{p}.attn.mlp_w", blk, "attn", "mlp_w")
+        if t.p(blk, "attn", "mlp_c", "kernel").ndim == 4:  # ConvPermuteMLP's convs
+            t.conv(f"{p}.attn.mlp_c.0", blk, "attn", "mlp_c")
+            t.conv(f"{p}.attn.mlp_h.0", blk, "attn", "mlp_h")
+            t.conv(f"{p}.attn.mlp_w", blk, "attn", "mlp_w")
+        else:  # WeightedPermuteMLP's Dense kernels
+            for m in ("mlp_h", "mlp_w", "mlp_c"):
+                t.linear(f"{p}.attn.{m}", blk, "attn", m)
         t.linear(f"{p}.attn.reweight.fc1", blk, "attn", "reweight", "Dense_0")
         t.linear(f"{p}.attn.reweight.fc2", blk, "attn", "reweight", "Dense_1")
         t.linear(f"{p}.attn.proj", blk, "attn", "proj")

@@ -14,13 +14,25 @@ parameter names:
 * ``embed_proj`` (a Linear) where that fold differs from ``embed_dims[0]``
   (the JAX zoo's addition: the reference has no such layer);
 * stages of Permutator blocks whose token mixer is ConvPermuteMLP
-  (depthwise (1,3) / (3,1) and pointwise branches, softmax-reweighted),
-  with a downsampling conv between stages where the width changes or a
-  transition is set; the JAX zoo's other mixer, WeightedPermuteMLP
-  (``use_conv_mixer=False``), which no registry spec and no converter
-  uses, is not ported; ``segment_dim`` is kept for the JAX signature and
-  unused, as it is there with the conv mixer;
+  (depthwise (1,3) / (3,1) and pointwise branches, softmax-reweighted) by
+  default, or with ``use_conv_mixer=False`` WeightedPermuteMLP
+  (segment-wise H / W / C linear permutes, ``segment_dim`` segments a
+  stage), with a downsampling conv between stages where the width changes
+  or a transition is set; ``segment_dim`` is unused with the conv mixer,
+  as it is in JAX;
 * LayerNorm, mean over tokens, a linear head.
+
+WeightedPermuteMLP's ``mlp_h`` and ``mlp_w`` are as wide as a column and a
+row of the stage's token grid times the segment width (``hh * s`` and
+``ww * s``, ``s = C / segment_dim``): flax's ``Dense`` reads that width off
+its first input, while a torch ``Linear`` needs it when it is built. The
+weighted HiT therefore takes the patch size (``patch_size``, an int or
+``(h, w)``) and works each stage's grid out from it, as ``_fold_width``
+works out the token features from the bands: the patch embedding halves
+the grid (rounding up), each transition halves it again (rounding down).
+An explicit argument, rather than lazy parameters, keeps the net's
+``state_dict`` whole from the start, so a flax tree or a checkpoint loads
+into a fresh net with ``strict=True``; any grid JAX accepts is accepted.
 
 The reference's ``conv_cls_head`` and the dynamic convs' bias are never
 used and are left out.
@@ -28,7 +40,7 @@ used and are left out.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -134,11 +146,52 @@ class ConvPermuteMLP(nn.Module):
         return self.proj(z.reshape(b, hh, ww, c))
 
 
+class WeightedPermuteMLP(nn.Module):
+    """Segment-wise H / W / C linear permutes on an ``hh x ww`` token grid,
+    softmax-reweighted, then a projection. ``mlp_h`` mixes each column's
+    ``hh`` tokens segment by segment (width ``hh * s``), ``mlp_w`` each row's
+    ``ww`` tokens (``ww * s``), ``mlp_c`` the channels; all three bias-free."""
+
+    def __init__(self, dim: int, segment_dim: int, hh: int, ww: int):
+        super().__init__()
+        if dim % segment_dim:
+            raise ValueError(f"width {dim} is not a multiple of segment_dim {segment_dim}")
+        self.segment_dim, self.hh, self.ww = segment_dim, hh, ww
+        s = dim // segment_dim
+        self.mlp_h = nn.Linear(hh * s, hh * s, bias=False)
+        self.mlp_w = nn.Linear(ww * s, ww * s, bias=False)
+        self.mlp_c = nn.Linear(dim, dim, bias=False)
+        self.reweight = Mlp(dim, dim // 4, dim * 3)
+        self.proj = nn.Linear(dim, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, H, W, C]
+        b, hh, ww, c = x.shape
+        if (hh, ww) != (self.hh, self.ww):
+            raise ValueError(f"a token grid of {hh}x{ww}; this mixer was built for "
+                             f"{self.hh}x{self.ww} (give HiT the patch size of its input)")
+        sd = self.segment_dim
+        s = c // sd
+        seg = x.reshape(b, hh, ww, sd, s)
+        h = self.mlp_h(seg.permute(0, 3, 2, 1, 4).reshape(b, sd, ww, hh * s))
+        h = h.reshape(b, sd, ww, hh, s).permute(0, 3, 2, 1, 4).reshape(b, hh, ww, c)
+        w = self.mlp_w(seg.permute(0, 1, 3, 2, 4).reshape(b, hh, sd, ww * s))
+        w = w.reshape(b, hh, sd, ww, s).permute(0, 1, 3, 2, 4).reshape(b, hh, ww, c)
+        cc = self.mlp_c(x)
+        a = self.reweight((h + w + cc).mean(dim=(1, 2)))
+        a = torch.softmax(a.reshape(b, c, 3), dim=-1).permute(2, 0, 1)[:, :, None, None, :]
+        return self.proj(h * a[0] + w * a[1] + cc * a[2])
+
+
 class PermutatorBlock(nn.Module):
-    def __init__(self, dim: int, mlp_ratio: float = 3.0):
+    """``grid`` (the stage's ``(hh, ww)`` token grid): None for the conv
+    mixer, which takes any grid; the weighted mixer is built for one."""
+
+    def __init__(self, dim: int, segment_dim: int = 8, mlp_ratio: float = 3.0,
+                 use_conv_mixer: bool = True, grid: Optional[Tuple[int, int]] = None):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn = ConvPermuteMLP(dim)
+        self.attn = (ConvPermuteMLP(dim) if use_conv_mixer
+                     else WeightedPermuteMLP(dim, segment_dim, *grid))
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
 
@@ -163,24 +216,43 @@ def _fold_width(bands: int) -> int:
     return 8 * ((s1 - 1) // 2 + 1)
 
 
+def _token_grid(patch_size) -> Tuple[int, int]:
+    """The token grid after the two dynamic convs: the first halves each
+    spatial side (kernel 3, padding 1, stride 2), the second keeps it."""
+    hp, wp = (patch_size, patch_size) if isinstance(patch_size, int) else patch_size
+    return (hp - 1) // 2 + 1, (wp - 1) // 2 + 1
+
+
 class HiT(nn.Module):
+    """``use_conv_mixer=False`` takes WeightedPermuteMLP as every block's
+    token mixer, which needs ``patch_size`` (module docstring)."""
+
     def __init__(self, bands: int, num_classes: int, layers: Tuple[int, ...] = (4, 3, 14, 3),
                  embed_dims: Tuple[int, ...] = (480, 480, 512, 512),
                  transitions: Tuple[bool, ...] = (False, True, False, False),
                  segment_dim: Tuple[int, ...] = (8, 8, 4, 4),
-                 mlp_ratios: Tuple[float, ...] = (3.0, 3.0, 3.0, 3.0)):
+                 mlp_ratios: Tuple[float, ...] = (3.0, 3.0, 3.0, 3.0),
+                 use_conv_mixer: bool = True,
+                 patch_size: Optional[Union[int, Tuple[int, int]]] = None):
         super().__init__()
+        if not use_conv_mixer and patch_size is None:
+            raise ValueError("HiT with use_conv_mixer=False needs patch_size: its mixers' "
+                             "widths follow the token grid")
         self.patch_embed = _PatchEmbed()
         fold = _fold_width(bands)
         if fold != embed_dims[0]:
             self.embed_proj = nn.Linear(fold, embed_dims[0])
+        grid = None if use_conv_mixer else _token_grid(patch_size)
         network = []
         for i, n_blocks in enumerate(layers):
-            network.append(nn.ModuleList([PermutatorBlock(embed_dims[i], mlp_ratios[i])
-                                          for _ in range(n_blocks)]))
+            network.append(nn.ModuleList([
+                PermutatorBlock(embed_dims[i], segment_dim[i], mlp_ratios[i], use_conv_mixer, grid)
+                for _ in range(n_blocks)]))
             if i < len(layers) - 1 and (transitions[i] or embed_dims[i] != embed_dims[i + 1]):
                 ps = 2 if transitions[i] else 1
                 network.append(Downsample(embed_dims[i], embed_dims[i + 1], ps))
+                if grid is not None:  # a VALID conv of kernel and stride ps
+                    grid = (grid[0] // ps, grid[1] // ps)
         self.network = nn.ModuleList(network)
         self.norm = nn.LayerNorm(embed_dims[-1], eps=1e-5)
         self.head = nn.Linear(embed_dims[-1], num_classes)

@@ -237,7 +237,11 @@ class HSIMAE(nn.Module):
         remat = self.cfg.remat and self.training and torch.is_grad_enabled()
         for i, blk in enumerate(getattr(self, name)):
             k = keep[i] if keep is not None else None
-            x = checkpoint(blk, x, k, use_reentrant=False) if remat else blk(x, k)
+            # a Block draws nothing (its drop-path masks come in as ``k``, drawn
+            # before the stack), so the recompute needs no saved RNG state; saving
+            # it would read the card's generator, which a CUDA-graph capture forbids
+            x = (checkpoint(blk, x, k, use_reentrant=False, preserve_rng_state=False)
+                 if remat else blk(x, k))
         return x
 
     def _encode_grid(self, x: torch.Tensor, t: int, l: int,

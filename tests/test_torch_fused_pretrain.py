@@ -9,8 +9,10 @@ loop (its plain version; on a card they are one captured CUDA graph).
   within 1e-5 relative, parameters within 1e-5 relative plus
   ``1e-4 * sum of the rates`` (as ``test_torch_pretrain.py`` holds the
   eager step).
+* With ``remat`` (every block recomputed in the backward pass) the chunk
+  tracks JAX's remat chunk at the same tolerances.
 * The chunk against K eager steps with the generator's draws: 1e-6
-  relative. The update's last operation rounds once more than the eager
+  relative; a chunk with remat against eager steps without it too. The update's last operation rounds once more than the eager
   step's fused multiply-add, so parameters also take ``atol`` 1e-8, far
   above that rounding and far below any update.
 * ``run_pretraining(fused_steps=3)`` against JAX's loop with its chunk
@@ -91,9 +93,22 @@ def ids_from_mask(mask, t_size, l_size):
 
 
 def test_chunk_tracks_jax_fused_chunk(corpus):
+    track_jax_fused_chunk(corpus, remat=False)
+
+
+def test_chunk_tracks_jax_fused_chunk_with_remat(corpus):
+    """Both packages recompute every block in the backward pass (JAX's
+    ``nn.remat(Block)`` inside its scanned chunk, the port's
+    ``torch.utils.checkpoint`` inside the chunk's steps), at the same
+    tolerances."""
+    track_jax_fused_chunk(corpus, remat=True)
+
+
+def track_jax_fused_chunk(corpus, remat: bool):
     scenes, all_locs = corpus
     locs = all_locs[:K * B].reshape(K, B, 3)
-    jc, tc = jcfg.preset("HSIMAE-S", **TINY), tcfg.preset("HSIMAE-S", **TINY)
+    jc = jcfg.preset("HSIMAE-S", **TINY, remat=remat)
+    tc = tcfg.preset("HSIMAE-S", **TINY, remat=remat)
     jm = jh.build_hsimae(jc)
     params = jh.init_model(jm, seed=0)["params"]
     model = th.build_hsimae(tc, device="cpu", state_dict=from_jax_params(to_numpy(params), tc))
@@ -130,13 +145,48 @@ def test_chunk_tracks_jax_fused_chunk(corpus):
 
 
 def test_chunk_equals_eager_steps(corpus):
+    chunk_equals_eager_steps(corpus, chunk_remat=False)
+
+
+def test_chunk_with_remat_equals_eager_steps_without(corpus):
+    """The chunk recomputes its blocks in the backward pass, the eager
+    steps keep their activations: same draws, same losses and parameters
+    (remat changes only the autodiff schedule, as in JAX)."""
+    chunk_equals_eager_steps(corpus, chunk_remat=True)
+
+
+def test_blocks_draw_nothing():
+    """A Block takes its drop-path masks as arguments and draws nothing, with
+    masks or without, so recomputing it needs no saved RNG state (the
+    port's remat runs ``checkpoint(..., preserve_rng_state=False)``, which a
+    CUDA-graph capture needs); a training ``forward_pretrain`` with every
+    draw injected draws nothing either, with remat or without."""
+    tc = tcfg.preset("HSIMAE-S", **TINY, drop_path=0.1)
+    blk = th.build_hsimae(tc, seed=0, device="cpu").train().blocks_1[0]
+    x = torch.randn(4, 9, tc.embed_dim, requires_grad=True)
+    keep = (torch.tensor([True, False, True, True]), torch.tensor([False, True, True, True]))
+    torch.manual_seed(0)
+    state = torch.get_rng_state()
+    for k in (keep, None):
+        blk(x, k).sum().backward()
+        assert torch.equal(torch.get_rng_state(), state)
+    imgs = torch.rand(B, 9, 9, 32, generator=torch.Generator().manual_seed(1))
+    for remat in (False, True):
+        model = th.build_hsimae(tc.replace(remat=remat), seed=0, device="cpu").train()
+        draws = tpt.draw_pretrain(model, B, *GRID, torch.Generator().manual_seed(2), "cpu")
+        state = torch.get_rng_state()
+        model.forward_pretrain(imgs, *GRID, None, draws.grid, draws.drop_keep)[0].backward()
+        assert torch.equal(torch.get_rng_state(), state)
+
+
+def chunk_equals_eager_steps(corpus, chunk_remat: bool):
     scenes, all_locs = corpus
     src = MultiScenePatchSource(scenes, device="cpu")
     locs = all_locs[np.random.default_rng(0).integers(0, len(all_locs), (K, B))]
     tc = tcfg.preset("HSIMAE-S", **TINY, drop_path=0.1)  # drop-path masks drawn too
     runs = []
     for fused in (True, False):
-        model = th.build_hsimae(tc, seed=0, device="cpu")
+        model = th.build_hsimae(tc.replace(remat=chunk_remat and fused), seed=0, device="cpu")
         opt, sched = pretrain_optimizer(model, LR, WD, TOTAL)
         if fused:
             losses = tpt.make_fused_pretrain_chunk(model, opt, sched, src, seed=5)(locs, *GRID)

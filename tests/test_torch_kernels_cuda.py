@@ -247,6 +247,30 @@ def test_wgmma_d256_grid_shapes_of_the_cases(card):
     assert -(-50 // per_tile) < _sms()
 
 
+# HSIMAE-L's validation-pass launch shapes: a val batch of 80 and a full one of 512 through
+# blocks_1 [4b, 9, 256], blocks_2 [9b, 4, 256] and the fusion blocks [b, 36, 256]
+D256_VAL_SHAPES = [(b * k, s) for b in (80, 512) for k, s in ((4, 9), (9, 4), (1, 36))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("m,s", D256_VAL_SHAPES)
+def test_d256_kernels_at_the_hsimae_l_val_shapes(card, m, s, dtype, tol):
+    """Both D 256 kernels at fine-tuning's validation shapes, where the row
+    tiles are fewer than the SMs and partly filled: the route's kernel once,
+    against block_reference (f32 2e-5, bf16 5e-2, scaled)."""
+    p = random_block(256, swiglu_hidden_dim(256), seed=5 * s + m)
+    x = torch.randn(m, s, 256, generator=torch.Generator().manual_seed(m * s)).to("cuda", dtype)
+    before = counts()
+    got = tfb.fused_encoder_block(x, tfb.kernel_weights(p, dtype), 16)
+    ref = tfb.block_reference(x, p, 16)
+    torch.cuda.synchronize()
+    assert counts() == tuple(b + a for b, a in zip(before, route(dtype, 256)))
+    assert got.dtype == dtype and got.shape == x.shape
+    assert torch.isfinite(got.float()).all()
+    assert scaled_err(got, ref) <= tol, scaled_err(got, ref)
+
+
 @pytest.mark.cuda
 def test_wgmma_grid_shapes_of_the_cases(card):
     """The persistent-loop cases above are what they claim on this card:

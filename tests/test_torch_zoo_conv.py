@@ -100,15 +100,15 @@ class Built(NamedTuple):
     x: np.ndarray
 
 
-_BUILT: Dict[str, Built] = {}
+_BUILT: Dict[Case, Built] = {}
 
 
 def build(case: Case) -> Built:
     """The port net with seeded weights, its state converted by the JAX
     converter (keys read recorded) and restored into flax variables whose
     structure comes from ``jax.eval_shape`` of the flax init (cached per
-    net for the module)."""
-    if case.name not in _BUILT:
+    case for the module)."""
+    if case not in _BUILT:
         model = case.port_model()
         sd = seeded_state(model)
         rec = _Reading(sd)
@@ -124,8 +124,8 @@ def build(case: Case) -> Built:
             template = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), tree)
             restored[col] = (template, *partial_restore(template, converted.get(col, {}),
                                                         verbose=False))
-        _BUILT[case.name] = Built(model, sd, set(rec.read), converted, restored, x)
-    return _BUILT[case.name]
+        _BUILT[case] = Built(model, sd, set(rec.read), converted, restored, x)
+    return _BUILT[case]
 
 
 def variables(b: Built) -> dict:

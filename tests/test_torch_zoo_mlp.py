@@ -12,7 +12,18 @@ parity test (30 bands, widths 64): there the patch embedding's fold equals
 them. At ``tests/test_baselines.py``'s size (64 bands, widths 480) the JAX
 zoo adds ``embed_proj``, a layer the reference and so the JAX converter
 lack; that case is held with the converter's tree plus ``embed_proj``
-added by hand."""
+added by hand.
+
+HiT's other token mixer, WeightedPermuteMLP (``use_conv_mixer=False``),
+runs through the same checks at the same size and patch 15. JAX's
+``convert_hit`` covers only the conv mixer, so the weighted mixer's three
+Dense kernels are mapped by hand (:func:`convert_weighted_hit`). At patch 15
+every stage's ``hh * s`` happens to equal the width; the mixer alone on a
+non-square 5 x 7 grid and the whole net at patch 13 (and 11 x 13) hold the
+widths where it does not, and catch an H / W mix-up that a square grid
+hides."""
+
+import re
 
 import jax
 import jax.numpy as jnp
@@ -41,21 +52,53 @@ DCTN_DIMS, HIT_DIMS = (320, 320, 512, 512), (64, 64, 64, 64)
 DCTN_KW = dict(layers=LAYERS, bands=64, num_classes=7, embed_dims=DCTN_DIMS, transitions=TRANS,
                segment_dim=(8, 8, 4, 4), mlp_ratios=(3.0, 3.0, 3.0, 3.0))
 HIT_KW = dict(bands=30, num_classes=7, layers=LAYERS, embed_dims=HIT_DIMS, transitions=TRANS)
+
+
+def convert_weighted_hit(sd, layers=LAYERS, transitions=TRANS, embed_dims=HIT_DIMS) -> dict:
+    """Port HiT ``state_dict`` with WeightedPermuteMLP mixers -> flax
+    variables: JAX's ``convert_hit`` on every other key (zeros standing in
+    for the conv mixer's kernels it expects), then each block's
+    ``mlp_h`` / ``mlp_w`` / ``mlp_c`` Linear weight as a Dense kernel
+    (transposed), by hand."""
+    rx = re.compile(r"(network\.\d+\.\d+)\.attn\.mlp_c\.weight")
+    prefixes = sorted({m.group(1) for k in sd if (m := rx.fullmatch(k))},
+                      key=lambda p: tuple(int(i) for i in p.split(".")[1:]))
+    plain = {k: sd[k] for k in sd if ".attn.mlp_" not in k}
+    dense = {k: sd[k] for k in sd if ".attn.mlp_" in k}
+    for p in prefixes:
+        c = dense[f"{p}.attn.mlp_c.weight"].shape[0]
+        plain.update({f"{p}.attn.mlp_c.0.weight": torch.zeros(c, 1, 1, 3),
+                      f"{p}.attn.mlp_h.0.weight": torch.zeros(c, 1, 3, 1),
+                      f"{p}.attn.mlp_w.weight": torch.zeros(c, c, 1, 1)})
+    out = jcvt.convert_hit(plain, layers, transitions, embed_dims)
+    blocks = sorted((k for k in out["params"] if k.startswith("block_")),
+                    key=lambda b: tuple(int(i) for i in b.split("_")[1:]))
+    assert len(blocks) == len(prefixes)
+    for p, blk in zip(prefixes, blocks):
+        for m in ("mlp_h", "mlp_w", "mlp_c"):
+            out["params"][blk]["attn"][m] = {"kernel": dense[f"{p}.attn.{m}.weight"].numpy().T}
+    return out
+
+
+WEIGHTED = dict(use_conv_mixer=False)
 CASES = [
     Case("HiT", lambda: jzoo.HiT(**HIT_KW), lambda: tzoo.HiT(**HIT_KW),
          lambda sd: jcvt.convert_hit(sd, LAYERS, TRANS, HIT_DIMS), 15, 30),
     Case("DCTN", lambda: jzoo.DCTN(**DCTN_KW), lambda: tzoo.DCTN(**DCTN_KW),
          lambda sd: jcvt.convert_dctn(sd, LAYERS, TRANS, DCTN_DIMS), 15, 64),
+    Case("HiT", lambda: jzoo.HiT(**HIT_KW, **WEIGHTED),
+         lambda: tzoo.HiT(**HIT_KW, **WEIGHTED, patch_size=15), convert_weighted_hit, 15, 30),
 ]
+CASE_IDS = ["HiT", "DCTN", "HiT-weighted"]
 
 
 @pytest.mark.parametrize("check", sorted(CHECKS))
-@pytest.mark.parametrize("case", CASES, ids=[c.name for c in CASES])
+@pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
 def test_zoo_net_matches_jax(case, check):
     CHECKS[check](case)
 
 
-@pytest.mark.parametrize("case", CASES, ids=[c.name for c in CASES])
+@pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
 def test_zoo_net_train_forward_matches_jax(case, monkeypatch):
     check_train_forward(case, monkeypatch)
 
@@ -85,6 +128,72 @@ def test_hit_embed_proj_at_the_zoo_test_size():
     np.testing.assert_allclose(got, ref, rtol=2e-4, atol=2e-4)
     back = from_jax_zoo("HiT", converted)
     assert set(back) == set(sd) and all(torch.equal(back[k], sd[k]) for k in sd)
+
+
+def flax_weighted_mixer(model) -> dict:
+    """A port ``WeightedPermuteMLP``'s weights as the flax module's params."""
+    lin = lambda m: {"kernel": m.weight.detach().numpy().T,  # noqa: E731
+                     **({"bias": m.bias.detach().numpy()} if m.bias is not None else {})}
+    return {"mlp_h": lin(model.mlp_h), "mlp_w": lin(model.mlp_w), "mlp_c": lin(model.mlp_c),
+            "reweight": {"Dense_0": lin(model.reweight.fc1), "Dense_1": lin(model.reweight.fc2)},
+            "proj": lin(model.proj)}
+
+
+def test_weighted_mixer_where_the_grid_differs_from_the_width():
+    """Where ``hh * s`` and ``ww * s`` differ from the width:
+
+    * the mixer alone on a 5 x 7 grid of width 64 (patch 13's 7 rows at the
+      first stage, a narrower second side) at segment dims 4 and 16:
+      ``mlp_h`` is ``5 s`` wide and ``mlp_w`` ``7 s``; outputs against
+      flax's module at 2e-4, and the transposed grid refused;
+    * the weighted HiT at patch 13 (grids 7 x 7 then 3 x 3, so ``hh * s`` is
+      56 and 48 against width 64) and at 11 x 13: eval logits against
+      flax's on the hand-mapped tree at 2e-4, and ``from_jax_zoo`` gives the
+      port's state back bit for bit."""
+    from hsimae_tpu.models.baselines.hit import WeightedPermuteMLP as JMixer
+    from hsimae_tpu_torch.models.baselines.common import init_like_flax
+    from hsimae_tpu_torch.models.baselines.hit import WeightedPermuteMLP
+
+    b, hh, ww, c = 2, 5, 7, 64
+    for segment_dim in (4, 16):
+        s = c // segment_dim
+        model = init_like_flax(WeightedPermuteMLP(c, segment_dim, hh, ww),
+                               torch.Generator().manual_seed(segment_dim))
+        with torch.no_grad():
+            model.proj.bias.normal_(0.0, 0.1, generator=torch.Generator().manual_seed(1))
+        assert model.mlp_h.weight.shape == (hh * s, hh * s) and model.mlp_w.weight.shape == (
+            ww * s, ww * s) and hh * s != c != ww * s
+        x = np.random.default_rng(segment_dim).standard_normal((b, hh, ww, c)).astype(np.float32)
+        ref = JMixer(c, segment_dim).apply({"params": flax_weighted_mixer(model)}, jnp.asarray(x))
+        with torch.no_grad():
+            got = model(torch.from_numpy(x)).numpy()
+        np.testing.assert_allclose(got, np.asarray(ref), rtol=2e-4, atol=2e-4,
+                                   err_msg=f"segment_dim {segment_dim}")
+        with pytest.raises(ValueError, match="5x7"):
+            model(torch.from_numpy(x).transpose(1, 2).contiguous())
+
+    jm = jzoo.HiT(**HIT_KW, **WEIGHTED)
+    for patch in (13, (11, 13)):
+        hp, wp = (patch, patch) if isinstance(patch, int) else patch
+        model = tzoo.HiT(**HIT_KW, **WEIGHTED, patch_size=patch)
+        sd = seeded_state(model)
+        assert model.network[0][0].attn.mlp_h.weight.shape[0] == (hp + 1) // 2 * 8
+        converted = convert_weighted_hit(sd)
+        x = np.random.default_rng(3).standard_normal((2, hp, wp, 30)).astype(np.float32)
+        shapes = jax.eval_shape(lambda v: jm.init(jax.random.PRNGKey(0), v, False),
+                                jnp.asarray(x))
+        assert (jax.tree_util.tree_structure(shapes)
+                == jax.tree_util.tree_structure(converted)), "the trees differ"
+        assert jax.tree_util.tree_all(jax.tree_util.tree_map(
+            lambda a, b: a.shape == b.shape, shapes, converted))
+        ref = np.asarray(jax.jit(lambda v, x: jm.apply(v, x, False))(converted, x))
+        model.eval()
+        with torch.no_grad():
+            got = model(torch.from_numpy(x)).numpy()
+        np.testing.assert_allclose(got, ref, rtol=2e-4, atol=2e-4, err_msg=f"patch {patch}")
+        back = from_jax_zoo("HiT", converted)
+        assert set(back) == set(sd) and all(torch.equal(back[k], sd[k]) for k in sd)
+        tzoo.HiT(**HIT_KW, **WEIGHTED, patch_size=patch).load_state_dict(back, strict=True)
 
 
 def test_adaptive_avg_pool_equals_the_jax_zoo_pooling_matrices():
